@@ -1,0 +1,462 @@
+"""``rstorm-search`` — the batched placement-search scheduler.
+
+Wraps the whole subsystem as a registered scheduler: seed candidate chains
+(greedy R-Storm, greedy under randomized task orders, or random
+placements), anneal all chains
+in one batched run, then return the best feasible candidate under the
+requested ``objective``:
+
+* ``netcost`` (default) — lowest network cost, guaranteed never above the
+  greedy seed's;
+* ``throughput`` — highest throughput proxy (:mod:`.throughput` — the
+  binding bound the paper's §6 measurements are about), netcost as the
+  tie-break, and the never-worse guarantee measured where it matters: the
+  final candidate assignment (stranded-task recovery included) is
+  simulated (``stream.simulator``) against the greedy seed; greedy wins
+  any regression in *simulated sink throughput*, while a candidate that is
+  strictly better under the proxy keeps a simulated tie.
+
+Unplaced tasks: the search permutes the tasks greedy could place (swaps
+preserve the per-node multiset, so hard feasibility of the seed is
+preserved too); after the winner is chosen, greedy's ``unassigned`` leftovers
+get one more placement pass against the winner's residual budget — an
+annealed candidate can consolidate demand and free the capacity greedy
+fragmented, so tasks greedy stranded may now fit.
+
+The batched work (annealing, scoring) runs on the scheduler's ``device``:
+the card unless the caller asks for the CPU.  The winner is picked on host
+numpy copies of the scores, so ties resolve exactly as in the reference
+(lowest chain index).  ``init="all-registered"`` needs the other schedulers,
+which come with a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import time
+from types import SimpleNamespace
+from typing import Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..assignment import Assignment
+from ..cluster import Cluster
+from ..engine import ArenaSelector, PlacementArena
+from ..registry import KwargField, register_scheduler
+from ..schedulers import RStormScheduler, Scheduler
+from ..topology import Topology
+from ..traversal import task_selection
+from .anneal import BatchAnnealer, OBJECTIVES, swap_proposals
+from .backend import resolve_device
+from .batch import BatchArena
+from .objective import evaluate_batch
+from .throughput import compile_throughput
+
+INIT_MODES = ("greedy", "random", "all-registered")
+
+#: Time-budget tiers for ``budget_s``: ``(ceiling_s, n_chains, step_scale)``.
+#: A budget resolves to the first tier whose ceiling covers it and ``steps``
+#: is ``step_scale × n_tasks`` clamped to [BUDGET_MIN_STEPS, BUDGET_MAX_STEPS].
+#: The table is a calibrated static cost model — the decision path never
+#: reads a clock, so a given (budget tier, topology size) always produces
+#: the *same* search on any machine: the budget is honored statistically,
+#: the determinism exactly (the contract a control loop needs).
+BUDGET_TIERS = (
+    (0.1, 8, 4),
+    (0.5, 16, 12),
+    (2.0, 32, 40),
+    (10.0, 64, 120),
+)
+#: Plan for budgets above the last tier ceiling.
+BUDGET_FLOOR_PLAN = (128, 400)
+BUDGET_MIN_STEPS = 64
+BUDGET_MAX_STEPS = 20_000
+
+
+def budget_plan(budget_s: float, n_tasks: int) -> "tuple[int, int]":
+    """Deterministic ``(n_chains, steps)`` for a latency budget.
+
+    Pure in (budget tier, topology size): no wall-clock read anywhere in
+    the decision path (hot-loop lint contract), so budgeted searches replay
+    bit-identically.
+    """
+    if budget_s <= 0:
+        raise ValueError(f"budget_s must be > 0, got {budget_s!r}")
+    for ceiling, chains, scale in BUDGET_TIERS:
+        if budget_s <= ceiling:
+            break
+    else:
+        chains, scale = BUDGET_FLOOR_PLAN
+    steps = min(BUDGET_MAX_STEPS, max(BUDGET_MIN_STEPS, scale * max(n_tasks, 1)))
+    return chains, steps
+
+#: Randomized-task-order greedy seeds are sequential (one Alg-4 descent
+#: each), so only this many chains get one; the rest start from seeded
+#: random perturbations of the plain greedy placement.
+MAX_ORDERED_SEEDS = 8
+
+#: Swap-perturbation depth for the non-ordered chains.
+PERTURB_SWAPS = 16
+
+
+def _greedy_with_order(
+    scheduler: RStormScheduler, arena: PlacementArena, topology: Topology, order
+) -> Optional[Dict[str, str]]:
+    """One Alg-4 greedy descent over ``order`` (the scheduler's own arena
+    placement loop, just reordered); task-id → node-id.
+
+    Runs on the arena's current ledger and rolls it back before returning.
+    Returns None when a task greedy could otherwise place fails under this
+    order (the seed would cover a different task set than the batch).
+    """
+    snap = arena.snapshot()
+    a = Assignment(topology_id=topology.id)
+    scheduler._place_on_arena(arena, topology, a, order=order)
+    arena.rollback(snap)
+    return dict(a.placements) if not a.unassigned else None
+
+
+def _perturb(base: np.ndarray, rows: np.ndarray, n_swaps: int, seed: int) -> None:
+    """Apply ``n_swaps`` seeded random transpositions to each row of
+    ``base[rows]`` in place (cheap chain diversification)."""
+    if rows.size == 0 or base.shape[1] < 2:
+        return
+    ii, jj = swap_proposals(base.shape[1], n_swaps, rows.size, seed)
+    for s in range(n_swaps):
+        i, j = ii[s], jj[s]
+        tmp = base[rows, i].copy()
+        base[rows, i] = base[rows, j]
+        base[rows, j] = tmp
+
+
+@register_scheduler(
+    "rstorm-search",
+    kwargs_schema={
+        "n_chains": KwargField(
+            types=(int,), default=32, minimum=1, doc="parallel search chains (B)"
+        ),
+        "steps": KwargField(
+            types=(int,),
+            default=2000,
+            minimum=1,
+            doc="swap proposals per chain (depth moves the needle more than "
+            "breadth on large topologies; breadth buys diversity)",
+        ),
+        "seed": KwargField(types=(int,), default=0, minimum=0, doc="PRNG seed"),
+        "init": KwargField(
+            types=(str,),
+            default="greedy",
+            choices=INIT_MODES,
+            doc="chain seeding: greedy R-Storm (+ randomized task orders), "
+            "uniform-random placements, or every registered scheduler",
+        ),
+        "weights": KwargField(
+            types=(dict, type(None)),
+            default=None,
+            doc="soft-dimension distance weights for the greedy seed (Alg 4)",
+        ),
+        "objective": KwargField(
+            types=(str,),
+            default="netcost",
+            choices=OBJECTIVES,
+            doc="what the search optimizes: network cost (QM3DKP quadratic "
+            "term), or the simulator-derived throughput proxy with netcost "
+            "as tie-break and a simulated never-worse-than-greedy guarantee",
+        ),
+        "device": KwargField(
+            types=(str, type(None)),
+            default=None,
+            doc="torch device for annealing and scoring: None or 'cuda' "
+            "(the card; an error without one) or 'cpu'; placements are "
+            "identical on both",
+        ),
+        "multi_swap": KwargField(
+            types=(int,),
+            default=8,
+            minimum=1,
+            doc="accepted for kwarg parity with the reference, where it is "
+            "the swap proposals per fused scan element; the chain is the "
+            "same for every k, and the eager torch loop applies proposals "
+            "one at a time",
+        ),
+        "budget_s": KwargField(
+            types=(int, float, type(None)),
+            default=None,
+            doc="latency budget (seconds): overrides n_chains/steps with the "
+            "deterministic tier plan (budget_plan) sized from the topology — "
+            "no wall-clock in the decision path, so a budgeted search "
+            "replays bit-identically",
+        ),
+    },
+)
+class SearchScheduler(Scheduler):
+    """Multi-start batched annealing over the greedy seed's task set."""
+
+    def __init__(
+        self,
+        n_chains: int = 32,
+        steps: int = 2000,
+        seed: int = 0,
+        init: str = "greedy",
+        weights: Optional[Mapping[str, float]] = None,
+        objective: str = "netcost",
+        device: Optional[str] = None,
+        multi_swap: int = 8,
+        budget_s: Optional[float] = None,
+    ):
+        if init not in INIT_MODES:
+            raise ValueError(f"unknown init {init!r}; choose from {INIT_MODES}")
+        if init == "all-registered":
+            raise ValueError(
+                "init='all-registered' seeds from every registered scheduler; "
+                "the port registers only 'rstorm' and 'rstorm-search' until the "
+                "slice that ports core/reconfig/ and the other schedulers"
+            )
+        if objective not in OBJECTIVES:
+            raise ValueError(
+                f"unknown objective {objective!r}; choose from {OBJECTIVES}"
+            )
+        if multi_swap < 1:
+            raise ValueError(f"multi_swap must be >= 1, got {multi_swap}")
+        if budget_s is not None and budget_s <= 0:
+            raise ValueError(f"budget_s must be > 0, got {budget_s!r}")
+        self.n_chains = n_chains
+        self.steps = steps
+        self.seed = seed
+        self.init = init
+        self.weights = weights
+        self.objective = objective
+        self.device = resolve_device(device)
+        self.multi_swap = multi_swap
+        self.budget_s = budget_s
+
+    def plan(self, n_tasks: int) -> "tuple[int, int]":
+        """``(n_chains, steps)`` for this run: the explicit kwargs, or —
+        under a ``budget_s`` latency contract — the deterministic tier
+        plan sized from the topology."""
+        if self.budget_s is None:
+            return self.n_chains, self.steps
+        return budget_plan(self.budget_s, n_tasks)
+
+    def schedule(
+        self, topology: Topology, cluster: Cluster, *, commit: bool = True
+    ) -> Assignment:
+        # schedule_time_s is reporting metadata sampled once per schedule()
+        # call; placements and objective values never depend on it.
+        t0 = time.perf_counter()
+        out = self._schedule_phases(topology, cluster)
+        return self._finish(topology, cluster, out, commit, t0)
+
+    def _schedule_phases(self, topology: Topology, cluster: Cluster) -> Assignment:
+        topology.validate()
+        # Greedy R-Storm seed on a fresh arena; avail0 (the pre-placement
+        # ledger) is the capacity budget candidates are scored against.
+        arena = PlacementArena(cluster, topology, self.weights)
+        avail0 = arena.snapshot()
+        seed_assignment = Assignment(topology_id=topology.id)
+        greedy_scheduler = RStormScheduler(self.weights)
+        greedy_scheduler._place_on_arena(arena, topology, seed_assignment)
+        placements = dict(seed_assignment.placements)
+        out = Assignment(
+            topology_id=topology.id,
+            placements=placements,
+            unassigned=list(seed_assignment.unassigned),
+        )
+        recovered = False
+        if len(placements) >= 2:
+            ba = BatchArena.from_arena(arena, topology, placements, avail0=avail0)
+            greedy_row = ba.encode(placements)
+            tm = (
+                compile_throughput(ba, topology, cluster)
+                if self.objective == "throughput"
+                else None
+            )
+            n_chains, steps = self.plan(ba.n_tasks)
+            # Ordered re-seeds descend from the pre-placement budget,
+            # not from the ledger the greedy seed just consumed.
+            arena.rollback(avail0)
+            P0 = self._build_inits(
+                ba, arena, topology, cluster, greedy_row, greedy_scheduler,
+                n_chains,
+            )
+            # One upload of the compiled arrays; the batched phases run on
+            # the device, the winner is picked on host copies.
+            t_anneal = time.perf_counter()
+            bad = ba.to(self.device)
+            tmd = tm.to(self.device) if tm is not None else None
+            P_dev = BatchAnnealer(bad).run(
+                P0, steps, self.seed, objective=self.objective, tm=tmd
+            )
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # close the anneal phase
+            t_eval = time.perf_counter()
+            result = _host(evaluate_batch(bad, P_dev, throughput_model=tmd))
+            greedy_eval = _host(evaluate_batch(bad, greedy_row, throughput_model=tmd))
+            P = P_dev.cpu().numpy()
+            t_done = time.perf_counter()
+            # Wall seconds of the batched phases of the last schedule() call
+            # (reporting only, like Assignment.schedule_time_s).
+            self.last_phase_s = {
+                "anneal": t_eval - t_anneal,
+                "evaluate": t_done - t_eval,
+            }
+            if self.objective == "throughput":
+                candidate = self._pick_throughput_candidate(
+                    ba, P, result, greedy_eval
+                )
+                if candidate is not None:
+                    # Recovery first, guarantee second: the stranded-task
+                    # pass mutates the assignment, so the simulated
+                    # never-worse check must see the *final* candidate.
+                    trial = Assignment(
+                        topology_id=topology.id,
+                        placements=candidate,
+                        unassigned=list(out.unassigned),
+                    )
+                    if trial.unassigned:
+                        self._place_unassigned(arena, avail0, topology, trial)
+                    if self._simulated_no_worse(topology, cluster, trial, out):
+                        out = trial
+                        recovered = True
+            else:
+                cand = np.where(result.feasible, result.net, np.inf)
+                best = int(np.argmin(cand))  # ties → lowest chain index
+                if np.isfinite(cand[best]) and cand[best] < greedy_eval.net[0]:
+                    out.placements = ba.decode(P[best])
+        if out.unassigned and not recovered:
+            # The chosen candidate may have consolidated demand greedy
+            # fragmented — re-attempt the stranded tasks against its
+            # residual budget.
+            self._place_unassigned(arena, avail0, topology, out)
+        return out
+
+    def _pick_throughput_candidate(
+        self, ba, P, result, greedy_eval
+    ) -> Optional[Dict[str, str]]:
+        """Best feasible chain by (proxy throughput ↓, netcost ↑, chain
+        index ↑); None unless strictly better than the greedy seed under
+        the proxy (netcost as the tie-break)."""
+        tp = np.where(result.feasible, result.throughput, -np.inf)
+        best_tp = tp.max()
+        if not np.isfinite(best_tp):
+            return None
+        tie = tp == best_tp
+        net = np.where(tie, result.net, np.inf)
+        best = int(np.argmin(net))  # ties → lowest chain index
+        g_tp, g_net = float(greedy_eval.throughput[0]), float(greedy_eval.net[0])
+        if (tp[best], -net[best]) <= (g_tp, -g_net):
+            return None  # greedy seed already at least as good per proxy
+        return ba.decode(P[best])
+
+    def _simulated_no_worse(self, topology, cluster, trial, base) -> bool:
+        """The guarantee measured in what §6 measures: the trial's final
+        assignment must not simulate below the greedy seed's sink
+        throughput (a proxy-strictly-better trial keeps a simulated tie)."""
+        from ...stream.simulator import Simulator  # lazy: stream imports core
+
+        sim = Simulator(cluster)
+        sim_trial = sim.run(
+            topology, Assignment(topology.id, placements=dict(trial.placements))
+        ).sink_throughput
+        sim_base = sim.run(
+            topology, Assignment(topology.id, placements=dict(base.placements))
+        ).sink_throughput
+        return sim_trial >= sim_base
+
+    def _place_unassigned(
+        self,
+        arena: PlacementArena,
+        avail0: np.ndarray,
+        topology: Topology,
+        out: Assignment,
+    ) -> None:
+        """One more Alg-4 pass for the tasks greedy stranded, against the
+        chosen candidate's residual budget (annealed candidates can free
+        capacity the greedy descent fragmented)."""
+        arena.rollback(avail0)
+        component_of = {t.id: t.component_id for t in topology.all_tasks()}
+        rows: Dict[str, tuple] = {}
+        for tid, nid in out.placements.items():
+            cid = component_of[tid]
+            if cid not in rows:
+                rows[cid] = arena.compile_demand(
+                    topology.components[cid].resource_demand
+                )
+            arena.assign(arena.index[nid], rows[cid][0])
+        selector = ArenaSelector(arena)
+        missing = set(out.unassigned)
+        still: List[str] = []
+        for task in task_selection(topology):
+            if task.id not in missing:
+                continue
+            cid = task.component_id
+            if cid not in rows:
+                rows[cid] = arena.compile_demand(
+                    topology.components[cid].resource_demand
+                )
+            row, hard = rows[cid]
+            i = selector.select(row, hard)
+            if i is None:
+                still.append(task.id)
+                continue
+            arena.assign(i, row)
+            out.placements[task.id] = arena.node_ids[i]
+        out.unassigned = still
+
+    # -- chain seeding ---------------------------------------------------------
+    def _build_inits(
+        self,
+        ba: BatchArena,
+        arena: PlacementArena,
+        topology: Topology,
+        cluster: Cluster,
+        greedy_row: np.ndarray,
+        greedy_scheduler: RStormScheduler,
+        n_chains: Optional[int] = None,
+    ) -> np.ndarray:
+        B = self.n_chains if n_chains is None else n_chains
+        T = ba.n_tasks
+        rng = np.random.Generator(np.random.Philox([self.seed, 0xC0FFEE]))
+        P0 = np.tile(greedy_row, (B, 1))
+        if self.init == "random":
+            alive_idx = np.flatnonzero(ba.alive)
+            if alive_idx.size:
+                P0[1:] = alive_idx[rng.integers(0, alive_idx.size, size=(B - 1, T))]
+            # Chain 0 stays the greedy seed so the never-worse guarantee is
+            # decided within the batch, not just by the final comparison.
+            return P0
+        seeds: List[np.ndarray] = [greedy_row]
+        if self.init == "greedy":  # "all-registered" is refused in __init__
+            order = task_selection(topology)
+            for k in range(min(B - 1, MAX_ORDERED_SEEDS)):
+                shuffled = list(order)
+                rng.shuffle(shuffled)
+                sol = _greedy_with_order(greedy_scheduler, arena, topology, shuffled)
+                if sol is not None and set(sol) == set(ba.tids):
+                    seeds.append(ba.encode(sol))
+        for c in range(B):
+            P0[c] = seeds[c % len(seeds)]
+        # Chains beyond the distinct seeds explore from perturbed copies.
+        _perturb(
+            P0,
+            np.arange(len(seeds), B),
+            PERTURB_SWAPS,
+            self.seed ^ 0x5EED,
+        )
+        return P0
+
+
+def _host(ev) -> "SimpleNamespace":
+    """Host numpy copies of a ``BatchEval`` (with its ``feasible`` mask),
+    so winner selection — argmin/argmax ties included — is numpy's, exactly
+    as in the reference."""
+    net = ev.net.cpu().numpy()
+    viol = ev.violation.cpu().numpy()
+    dead = ev.dead.cpu().numpy()
+    return SimpleNamespace(
+        net=net,
+        violation=viol,
+        dead=dead,
+        throughput=None if ev.throughput is None else ev.throughput.cpu().numpy(),
+        feasible=(viol <= 0.0) & (dead == 0),
+    )

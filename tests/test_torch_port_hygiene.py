@@ -1,0 +1,121 @@
+"""Structural rules of the PyTorch port.
+
+* ``src/repro_torch`` and ``chip_smoke.py`` import no ``jax`` and nothing of
+  the reference package ``repro`` (an AST scan, so a lazy import inside a
+  function counts too).
+* The port's entry points run on the card unless the caller asks for the
+  CPU: without CUDA, ``rstorm-search`` raises unless ``device="cpu"``.
+* The CUDA build targets Hopper (``sm_90a``) with ``-fmad=false``.
+* The kernel's argument struct is packed from the uploaded arena and model.
+"""
+
+from __future__ import annotations
+
+import ast
+import ctypes
+import importlib
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch.core as P  # noqa: E402
+from repro_torch import build  # noqa: E402
+from torch_cases import compile_case  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def imported_modules(path: Path):
+    """Absolute module names a file imports (relative imports resolve
+    inside the port and are skipped)."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_neither_jax_nor_reference(path):
+    for name in imported_modules(path):
+        root = name.split(".")[0]
+        assert root != "jax", f"{path.name} imports {name}"
+        assert root != "repro", f"{path.name} imports {name}"
+
+
+def test_port_modules_do_not_load_jax_or_reference(tmp_path):
+    """Importing the whole port in a fresh interpreter loads neither."""
+    import subprocess
+
+    code = (
+        "import sys, repro_torch.core, repro_torch.stream, repro_torch.build\n"
+        "import repro_torch.core.search.kernels\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+        "print(bad); sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=tmp_path, env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_search_needs_a_card_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        P.get_scheduler("rstorm-search")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        P.get_scheduler("rstorm-search", device="cuda")
+    assert P.get_scheduler("rstorm-search", device="cpu").device.type == "cpu"
+    *_, ba, _ = compile_case(P, "linear_net", with_tm=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ba.to(None)
+
+
+def test_port_registry_is_its_own():
+    import repro.core as R
+
+    assert P.scheduler_names() == ["rstorm", "rstorm-search"]
+    assert P.REGISTRY is not R.REGISTRY
+    assert "device" in P.REGISTRY["rstorm-search"].kwargs_schema
+    assert "backend" not in P.REGISTRY["rstorm-search"].kwargs_schema
+    with pytest.raises(ValueError, match="slice"):
+        P.get_scheduler("rstorm-search", init="all-registered", device="cpu")
+
+
+def test_build_command_targets_hopper_without_fma(monkeypatch):
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    out = build.library_path("fused_score")
+    cmd = build.build_command("fused_score", out)
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-fmad=false" in cmd
+    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    assert cmd[-1].endswith("csrc/fused_score.cu")
+    assert out.parent == REPO / "build" / "kernels"
+    assert out.name.startswith("fused_score-") and out.suffix == ".so"
+
+
+def test_kernel_arguments_pack_from_uploaded_arena():
+    """Every pointer field of the kernel's struct is filled from a table
+    (or a per-call buffer), and the struct matches the C layout."""
+    fs = importlib.import_module("repro_torch.core.search.kernels.fused_score")
+    *_, ba, tm = compile_case(P, "pageload")
+    tables, scalars, dims = fs._pack(ba.to("cpu"), tm.to("cpu"))
+    per_call = {"P", "out_net", "out_viol", "out_dead", "out_tp"}
+    assert set(tables) | per_call == set(fs._PTR_FIELDS)
+    args = fs._FusedArgs(B=4, **dims, **scalars)
+    for name, tensor in tables.items():
+        assert tensor.is_contiguous(), name
+        setattr(args, name, tensor.data_ptr())
+    assert ctypes.sizeof(args) == 8 * (len(fs._PTR_FIELDS) + len(fs._DOUBLE_FIELDS)) + 4 * len(
+        fs._INT_FIELDS
+    )
+    assert tables["ack_tab"].numel() == 2 * dims["n_dp"] + 1 + 2 * dims["n_pairs"] + dims["n_spouts"]
+    *_, solo, solo_tm = compile_case(P, "solo")
+    tables, _, dims = fs._pack(solo.to("cpu"), solo_tm.to("cpu"))
+    assert dims["E"] == 1 and tables["evalid"].tolist() == [0.0]

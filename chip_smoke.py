@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port of the placement search on one CUDA card.
+"""Drive the PyTorch/CUDA port on one CUDA card: the placement search and
+LM serving on qwen3-0.6b.
 
 Run from the repository root with no arguments::
 
@@ -21,10 +22,28 @@ Phases (any failure exits non-zero before the result line is printed):
    never-worse rule and hard feasibility, and counting kernel launches;
 4. card against CPU: the same schedules with ``device="cpu"`` and
    ``device="cuda"`` give identical placements on the §6 suite (16 chains ×
-   150 steps) and on the flagship case (64 chains × 200 steps).
+   150 steps) and on the flagship case (64 chains × 200 steps);
+5. attention build: ``flash_attention.cu`` and ``decode_attention.cu``
+   (started in the background with phase 1, one nvcc each), their build
+   seconds and ptxas reports;
+6. attention kernels against their plain versions on the card (relative
+   max error ≤ 1e-4 in f32, ≤ 3e-2 in bf16): flash on four shapes under
+   causal, bidirectional and window-256 masks, decode at B=8 / cache 4096
+   over five lengths (host and device lengths) and at G=3 / hd 64; times of
+   kernel, plain version and ``scaled_dot_product_attention`` (a yardstick,
+   never on the path) at the main path's shapes, with the card's bound;
+7. main path: qwen3-0.6b at full width and depth with seeded bf16 weights —
+   ``prefill`` of 4 × 2048 tokens, ``extend_cache`` to 2112, 64 greedy
+   ``decode_step``s, ``forward`` against prefill + one decode step, and
+   ``ServingEngine(batch_slots=8, max_seq=512)`` serving 16 requests of 32
+   new tokens; the launch counters must show 28 flash launches per forward
+   and 28 decode launches per step;
+8. the same weights and prompts through the plain attention path: prefill
+   logits and 16 teacher-forced decode steps within 3e-2 of the kernel path.
 
-The second-to-last lines are the card's nvidia-smi line and a JSON object
-with the kernel's numbers; the last line is the device contract line.
+Each phase prints its seconds.  The second-to-last lines are the card's
+nvidia-smi line and a JSON object with the three kernels' numbers; the last
+line is the device contract line.
 """
 
 from __future__ import annotations
@@ -33,6 +52,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -44,6 +64,21 @@ import torch
 #: compares, one per FP64 unit per clock, so its peak is half that: 17e12 ops/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP64_OPS_PER_S = 34e12 / 2
+#: Dense bf16 tensor-core rate and the f32 rate outside the tensor cores
+#: (the same data sheet): the peaks for attention on bf16 and f32 inputs.
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+ATTENTION_KERNELS = ["flash_attention", "decode_attention"]
+#: Relative max error of a kernel against its plain version: the
+#: reference's own ``tol_for`` (tests/test_kernels.py).
+TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+#: (B, H, Kv, S, hd) of the flash checks: the main path's widths at S = 128
+#: and 2048, an MQA case, and a ragged G = 3 case.
+FLASH_CASES = [(1, 16, 8, 128, 128), (4, 16, 8, 2048, 128), (1, 4, 1, 100, 64), (1, 15, 5, 513, 64)]
+FLASH_MASKS = [(True, None), (False, None), (True, 256)]
+#: (B, H, Kv, S, hd, lengths) of the decode checks.
+DECODE_CASES = [(8, 16, 8, 4096, 128, (1, 511, 512, 513, 4096)),
+                (4, 15, 5, 1024, 64, (1, 333, 1024))]
 
 
 def fail(msg: str) -> None:
@@ -78,6 +113,12 @@ def chain_topology(core, components, parallelism, mem=128.0, cpu=10.0):
     return t
 
 
+def phase_done(n: int, t0: float) -> float:
+    now = time.perf_counter()
+    print(f"# phase {n}: {now - t0:.2f} s", flush=True)
+    return now
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` calls (CUDA events, warmed)."""
     fn()
@@ -107,7 +148,13 @@ def main() -> None:
     smi = smi_line()
     print(f"# device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
 
+    # The attention kernels build in the background while the search phases
+    # run (one nvcc per source, all started together); phase 5 waits.
+    build_pool = ThreadPoolExecutor(max_workers=1)
+    attention_build = build_pool.submit(build.build_all, ATTENTION_KERNELS)
+
     # -- 1. build ---------------------------------------------------------------
+    phase_t0 = time.perf_counter()
     t0 = time.perf_counter()
     lib_path = build.build("fused_score")
     build_s = time.perf_counter() - t0
@@ -132,6 +179,8 @@ def main() -> None:
         rng = np.random.Generator(np.random.Philox(seed))
         pool = np.flatnonzero(ba.alive) if pool is None else pool
         return torch.as_tensor(pool[rng.integers(0, pool.size, size=(n, ba.n_tasks))], device=dev)
+
+    phase_t0 = phase_done(1, phase_t0)
 
     # -- 2. kernel against its plain version ------------------------------------
     max_err = 0.0
@@ -213,6 +262,8 @@ def main() -> None:
     bound_ops_ms = ops / PEAK_FP64_OPS_PER_S * 1e3
     print(f"# bound at B=256: {bytes_moved} B -> {bound_bytes_ms!r} ms, {ops} fp64 ops -> {bound_ops_ms!r} ms")
 
+    phase_t0 = phase_done(2, phase_t0)
+
     # -- 3. main path -------------------------------------------------------------
     fused_score.launches = 0
     greedy = P.get_scheduler("rstorm").schedule(fl_topo, fl_cluster, commit=False)
@@ -249,6 +300,8 @@ def main() -> None:
     for objective, run in runs.items():
         check(run["launches"] > 0, f"{objective} search never launched fused_score")
 
+    phase_t0 = phase_done(3, phase_t0)
+
     # -- 4. card against CPU -------------------------------------------------------
     def placements(topology, cluster, device, **kw):
         cluster.reset()
@@ -273,6 +326,11 @@ def main() -> None:
         n_same += 1
     print(f"# cuda placements == cpu placements in {n_same} schedules")
 
+    phase_done(4, phase_t0)
+
+    attention_entries = lm_phases(attention_build, dev)
+    build_pool.shutdown()
+
     kernels = {"kernels": [{
         "name": "fused_score",
         "route": "cuda",
@@ -285,7 +343,7 @@ def main() -> None:
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,
-    }]}
+    }] + attention_entries}
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
@@ -318,6 +376,221 @@ def fused_score_ops(ba, tm, P) -> int:
     ops += B * N * (2 * Dh + 10) + B * R * 2     # overshoot, thrash, 3 ratios, minima
     ops += B * 3 * (max(tm.ack.n_comp_edges, 1) + len(tm.ack.svc))  # ack recursion
     return ops
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want| in f32 (the reference's kernel-test
+    measure)."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-6))
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per compiled kernel: registers, spills, shared memory."""
+    lines, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes spill stores" in line and name:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            lines.append(f"# ptxas {name}: {line.split(':', 1)[1].strip()}; {spills}")
+            name = None
+    return lines
+
+
+def attention_bound_ms(q_bytes: int, kv_bytes: int, ops: int, dtype) -> tuple:
+    """(bound ms, what bounds it): each input read once and the output
+    (q's size) written once, against the operations at the dtype's peak."""
+    bytes_ms = (2 * q_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def lm_phases(attention_build, dev) -> list:
+    """Phases 5-8: the attention kernels and qwen3-0.6b serving.  Returns
+    the two kernels' entries of the ``kernels`` line."""
+    import torch.nn.functional as F
+
+    from repro_torch import build
+    from repro_torch.kernels.decode_attn import decode_attention, decode_attention_plain
+    from repro_torch.kernels.flash import flash_attention, flash_attention_plain
+    from repro_torch.models import build as build_model, extend_cache
+    from repro_torch.serve import Request, ServingEngine
+
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    # -- 5. build ----------------------------------------------------------------
+    phase_t0 = time.perf_counter()
+    for name, secs in attention_build.result().items():
+        print(f"# build: {name} in {secs:.2f} s (started with phase 1, in parallel)")
+        print("\n".join(ptxas_summary(build.library_path(name).with_suffix(".log").read_text())))
+    phase_t0 = phase_done(5, phase_t0)
+
+    # -- 6. kernels against their plain versions ------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    max_abs = {"flash_attention": 0.0, "decode_attention": 0.0}
+
+    def hold(name, label, got, want, dtype):
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype, f"{label}: shape/dtype")
+        err = rel_err(got, want)
+        check(err <= TOL[dtype], f"{label}: kernel against plain, relative error {err!r}")
+        max_abs[name] = max(max_abs[name], float((got.float() - want.float()).abs().max()))
+
+    n_cases = 0
+    for B, H, Kv, S, hd in FLASH_CASES:
+        for dtype in (f32, bf16):
+            q, k, v = randn(B, H, S, hd, dtype=dtype), randn(B, Kv, S, hd, dtype=dtype), randn(B, Kv, S, hd, dtype=dtype)
+            for causal, window in FLASH_MASKS:
+                label = f"flash B={B} H={H} Kv={Kv} S={S} hd={hd} {dtype} causal={causal} window={window}"
+                hold("flash_attention", label, flash_attention(q, k, v, causal=causal, window=window),
+                     flash_attention_plain(q, k, v, causal=causal, window=window), dtype)
+                n_cases += 1
+    for B, H, Kv, S, hd, lengths in DECODE_CASES:
+        for dtype in (f32, bf16):
+            q, k, v = randn(B, H, hd, dtype=dtype), randn(B, Kv, S, hd, dtype=dtype), randn(B, Kv, S, hd, dtype=dtype)
+            for length in lengths:
+                label = f"decode B={B} H={H} Kv={Kv} S={S} hd={hd} {dtype} length={length}"
+                want = decode_attention_plain(q, k, v, length)
+                hold("decode_attention", label, decode_attention(q, k, v, length), want, dtype)
+                on_card = torch.tensor(length, dtype=torch.int32, device=dev)
+                hold("decode_attention", label + " (device length)",
+                     decode_attention(q, k, v, on_card), want, dtype)
+                n_cases += 2
+    print(f"# attention kernels == plain versions within tolerance in {n_cases} cases; "
+          f"max abs error {json.dumps(max_abs)}")
+
+    # Times at the main path's shapes, on the strided model-layout views the
+    # model hands the kernels.
+    B, H, Kv, S, hd = 4, 16, 8, 2048, 128
+    q = randn(B, S, H, hd).transpose(1, 2)
+    k, v = (randn(B, S, Kv, hd).transpose(1, 2) for _ in range(2))
+    flash_ms = time_ms(lambda: flash_attention(q, k, v), 20)
+    flash_plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), 5)
+    flash_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), 20)
+    pairs = S * (S + 1) // 2
+    flash_bound = attention_bound_ms(q.numel() * 2, 2 * k.numel() * 2, 4 * B * H * hd * pairs, bf16)
+    print(f"# flash_attention B={B} S={S} causal bf16: kernel {flash_ms!r} ms, plain {flash_plain_ms!r} ms, "
+          f"sdpa {flash_lib_ms!r} ms, bound {flash_bound[0]!r} ms by {flash_bound[1]}")
+    B, S, L = 8, 4096, 2048
+    q = randn(B, 1, H, hd)[:, 0]
+    k, v = (randn(B, S, Kv, hd).transpose(1, 2) for _ in range(2))
+    decode_ms = time_ms(lambda: decode_attention(q, k, v, L), 50)
+    decode_plain_ms = time_ms(lambda: decode_attention_plain(q, k, v, L), 20)
+    q4, kl, vl = q[:, :, None], k[:, :, :L], v[:, :, :L]
+    decode_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, kl, vl, enable_gqa=True), 50)
+    decode_bound = attention_bound_ms(q.numel() * 2, 2 * B * Kv * L * hd * 2, 4 * B * H * hd * L, bf16)
+    print(f"# decode_attention B={B} cache={S} length={L} bf16: kernel {decode_ms!r} ms, plain "
+          f"{decode_plain_ms!r} ms, sdpa {decode_lib_ms!r} ms, bound {decode_bound[0]!r} ms by {decode_bound[1]}")
+    phase_t0 = phase_done(6, phase_t0)
+
+    # -- 7. main path: qwen3-0.6b at full width and depth -----------------------------
+    model = build_model("qwen3-0.6b", device="cuda", seed=0)
+    cfg = model.cfg
+    n_layers = cfg.n_layers
+    rng = np.random.default_rng(7)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, size=(4, 2048)), device=dev)
+    model.prefill({"tokens": prompts[:1, :128]})  # warm-up (cuBLAS handles), not timed
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+
+    t0 = time.perf_counter()
+    last, cache = model.prefill({"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    check(flash_attention.launches == n_layers, f"prefill launched flash {flash_attention.launches} times")
+    check(bool(torch.isfinite(last).all()), "prefill logits are not finite")
+    cache = extend_cache(model, cache, 2112)
+    tok = last[:, -1].argmax(-1, keepdim=True)
+    fed, step_logits = [], []
+    t0 = time.perf_counter()
+    for t in range(64):
+        fed.append(tok)
+        logits, cache = model.decode_step(cache, tok, 2048 + t)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        if t < 16:
+            step_logits.append(logits)
+    torch.cuda.synchronize()
+    decode_step_ms = (time.perf_counter() - t0) * 1e3 / 64
+    check(decode_attention.launches == 64 * n_layers,
+          f"64 decode steps launched decode_attention {decode_attention.launches} times")
+    check(bool(torch.isfinite(logits).all()), "decode logits are not finite")
+
+    before = flash_attention.launches
+    full, _, _ = model.forward({"tokens": prompts})
+    check(flash_attention.launches - before == n_layers, "forward did not launch flash once per layer")
+    _, short_cache = model.prefill({"tokens": prompts[:, :-1]})
+    dec, _ = model.decode_step(extend_cache(model, short_cache, 2048), prompts[:, -1:], 2047)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(full).all()), "forward logits are not finite")
+    fwd_err = rel_err(dec[:, 0], full[:, -1])
+    check(fwd_err <= 3e-2, f"forward against prefill + decode_step: relative error {fwd_err!r}")
+    del full
+    print(f"# qwen3-0.6b prefill 4 x 2048: {prefill_ms!r} ms; decode step (B=4, cache 2112): "
+          f"{decode_step_ms!r} ms; forward vs prefill+decode relative error {fwd_err!r}")
+
+    rng = np.random.default_rng(8)
+    requests = [Request(i, rng.integers(0, cfg.vocab, size=int(rng.integers(16, 129))).astype(np.int32),
+                        max_new_tokens=32) for i in range(16)]
+    engine = ServingEngine(model, batch_slots=8, max_seq=512)
+    before = decode_attention.launches
+    t0 = time.perf_counter()
+    engine.run(requests)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    check(all(r.done and len(r.output) == 32 for r in requests), "a request did not finish with 32 tokens")
+    n_decode_calls = sum(len(r.prompt) for r in requests) + engine.steps
+    check(decode_attention.launches - before == n_layers * n_decode_calls,
+          "the engine did not launch decode_attention once per layer and step")
+    tokens_per_s = 16 * 32 / serve_s
+    print(f"# ServingEngine 8 slots, 16 requests x 32 tokens: {serve_s!r} s, {tokens_per_s!r} generated "
+          f"tokens/s, {n_decode_calls} decode steps ({engine.steps} generating)")
+    main_launches = {"flash_attention": flash_attention.launches,
+                     "decode_attention": decode_attention.launches}
+    print(f"# main path launches: {json.dumps(main_launches)}")
+    phase_t0 = phase_done(7, phase_t0)
+
+    # -- 8. kernel path against plain path at full width ------------------------------
+    model.plain_attention = True
+    plain_last, plain_cache = model.prefill({"tokens": prompts})
+    err = rel_err(plain_last, last)
+    check(err <= 3e-2, f"prefill logits, kernel against plain path: relative error {err!r}")
+    errors = [err]
+    plain_cache = extend_cache(model, plain_cache, 2112)
+    agree = 0
+    for t in range(16):
+        logits, plain_cache = model.decode_step(plain_cache, fed[t], 2048 + t)
+        err = rel_err(step_logits[t], logits)
+        check(err <= 3e-2, f"decode step {t}, kernel against plain path: relative error {err!r}")
+        errors.append(err)
+        agree += int((step_logits[t][:, -1].argmax(-1) == logits[:, -1].argmax(-1)).sum())
+    torch.cuda.synchronize()
+    check(flash_attention.launches == main_launches["flash_attention"]
+          and decode_attention.launches == main_launches["decode_attention"],
+          "the plain path launched a kernel")
+    model.plain_attention = False
+    print(f"# kernel path == plain path: max relative error {max(errors)!r} over prefill and 16 "
+          f"teacher-forced steps; greedy tokens agree {agree}/{16 * 4}")
+    phase_done(8, phase_t0)
+
+    def entry(name, replaces, ms, plain_ms, bound, library_ms):
+        return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": main_launches[name], "max_abs_err": max_abs[name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library_ms}
+
+    return [
+        entry("flash_attention", "src/repro/kernels/flash/flash_attention.py:26",
+              flash_ms, flash_plain_ms, flash_bound, flash_lib_ms),
+        entry("decode_attention", "src/repro/kernels/decode_attn/decode_attention.py:23",
+              decode_ms, decode_plain_ms, decode_bound, decode_lib_ms),
+    ]
 
 
 if __name__ == "__main__":

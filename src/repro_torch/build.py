@@ -16,8 +16,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -72,6 +74,20 @@ def build(name: str) -> Path:
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def build_all(names: Sequence[str]) -> Dict[str, float]:
+    """Build several sources at once, one ``nvcc`` each, all started
+    together; returns each build's wall seconds (near 0 if already built).
+    The first failure is raised once all have finished."""
+    def timed(name: str) -> float:
+        t0 = time.perf_counter()
+        build(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        futures = {name: pool.submit(timed, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,21 @@
+"""deepseek-7b [dense] — llama-arch [arXiv:2401.02954; hf]."""
+from .base import ModelConfig
+
+
+def full() -> ModelConfig:
+    return ModelConfig(
+        arch="deepseek-7b", family="dense",
+        n_layers=30, d_model=4096, n_heads=32, n_kv_heads=32,
+        d_ff=11008, vocab=102400,
+        pattern=("attn",),
+        source="arXiv:2401.02954",
+    )
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        arch="deepseek-smoke", family="dense",
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+        d_ff=128, vocab=256,
+        pattern=("attn",),
+    )

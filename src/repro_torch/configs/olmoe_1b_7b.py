@@ -1,0 +1,23 @@
+"""olmoe-1b-7b [moe] — 64 experts, top-8 [arXiv:2409.02060; hf]."""
+from .base import ModelConfig
+
+
+def full() -> ModelConfig:
+    return ModelConfig(
+        arch="olmoe-1b-7b", family="moe",
+        n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16,
+        d_ff=1024, vocab=50304,
+        n_experts=64, top_k=8,
+        pattern=("attn",),
+        source="arXiv:2409.02060",
+    )
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        arch="olmoe-smoke", family="moe",
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+        d_ff=32, vocab=256,
+        n_experts=8, top_k=2,
+        pattern=("attn",),
+    )

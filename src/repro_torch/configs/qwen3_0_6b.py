@@ -1,0 +1,25 @@
+"""qwen3-0.6b [dense] — qk_norm, GQA, wide head_dim [hf:Qwen/Qwen3-0.6B; hf]."""
+from .base import ModelConfig
+
+
+def full() -> ModelConfig:
+    return ModelConfig(
+        arch="qwen3-0.6b", family="dense",
+        n_layers=28, d_model=1024, n_heads=16, n_kv_heads=8,
+        d_ff=3072, vocab=151936,
+        head_dim=128, qk_norm=True,
+        pattern=("attn",),
+        tie_embeddings=True,
+        source="hf:Qwen/Qwen3-0.6B",
+    )
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        arch="qwen3-smoke", family="dense",
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+        d_ff=128, vocab=256,
+        head_dim=32, qk_norm=True,
+        pattern=("attn",),
+        tie_embeddings=True,
+    )

@@ -1,0 +1,23 @@
+"""smollm-360m [dense] — llama-arch small [hf:HuggingFaceTB/SmolLM-360M; hf]."""
+from .base import ModelConfig
+
+
+def full() -> ModelConfig:
+    return ModelConfig(
+        arch="smollm-360m", family="dense",
+        n_layers=32, d_model=960, n_heads=15, n_kv_heads=5,
+        d_ff=2560, vocab=49152,
+        pattern=("attn",),
+        tie_embeddings=True,
+        source="hf:HuggingFaceTB/SmolLM-360M",
+    )
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        arch="smollm-smoke", family="dense",
+        n_layers=2, d_model=60, n_heads=3, n_kv_heads=1,
+        d_ff=128, vocab=256,
+        pattern=("attn",),
+        tie_embeddings=True,
+    )

@@ -3,34 +3,17 @@
 The reference dispatches between jax (scoped float64) and numpy; the port
 runs one set of torch ops on an explicit device instead.  Every search
 tensor is created with ``dtype=torch.float64`` (placements ``int64``), so
-there is no global dtype switch to scope.  ``None`` means the card: the
-port's entry points run on CUDA unless the caller asks for the CPU, and a
-missing card is an error, never a silent fallback.
+there is no global dtype switch to scope.  ``resolve_device`` (the port's
+device gate, :mod:`repro_torch.device`) is re-exported here.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple, Union
+from typing import Iterator, Optional, Tuple
 
 import torch
 
-DeviceLike = Union[str, torch.device, None]
-
-
-def resolve_device(device: DeviceLike = None) -> torch.device:
-    """Map a requested device to a concrete ``torch.device``.
-
-    ``None`` and ``"cuda"`` need a CUDA card; ``"cpu"`` always works.
-    """
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={device!r} needs a CUDA card but torch.cuda.is_available() "
-            "is False; pass device='cpu' to run on the CPU"
-        )
-    return dev
+from ...device import DeviceLike, resolve_device  # noqa: F401  (re-exported)
 
 
 def chunk_ranges(n: int, chunk: int) -> Iterator[Tuple[int, int]]:

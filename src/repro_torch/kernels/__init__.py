@@ -1,0 +1,10 @@
+# Hand-written CUDA kernels of the LM substrate, each beside its plain torch
+# version (the counterpart of the reference's ``ref.py``) and a model-layout
+# op (``ops.py``):
+#   flash/       — causal / sliding-window / bidirectional GQA flash attention
+#   decode_attn/ — split-K flash decoding (one token against a KV cache)
+# The grouped expert GEMM, the RG-LRU scan and the chunkwise mLSTM are still
+# to be ported (ROADMAP.md §2).
+from . import decode_attn, flash
+
+__all__ = ["decode_attn", "flash"]

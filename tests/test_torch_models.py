@@ -1,0 +1,137 @@
+"""The port's language model against the JAX package's, on the CPU.
+
+The reference's seeded parameters are carried into the port with
+``params_from_jax``; then ``forward`` logits, ``prefill`` logits and several
+teacher-forced ``decode_step``s (past the sliding window, and past the end
+of a full cache, where the slot clamps) are compared.  Tolerances: relative
+max error 1e-4 with ``dtype="float32"`` and 3e-2 as shipped in bfloat16
+(the reference's ``tol_for``; the reference forms attention scores in the
+compute dtype, the port in f32).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as ref_configs  # noqa: E402
+from repro.models import extend_cache as ref_extend_cache  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.models import Model, build, extend_cache  # noqa: E402
+from torch_cases import lm_pair, rel_err  # noqa: E402
+
+
+def local_config():
+    """qwen3's smoke config with alternating sliding-window and global layers."""
+    return dataclasses.replace(ref_configs.get_smoke("qwen3-0.6b"), pattern=("local", "attn"),
+                               window=4, n_layers=3)
+
+
+CONFIGS = {
+    "qwen3": lambda: ref_configs.get_smoke("qwen3-0.6b"),
+    "smollm": lambda: ref_configs.get_smoke("smollm-360m"),
+    "qwen3-local": local_config,
+}
+DTYPES = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def tokens(vocab, B, S, seed):
+    return np.random.default_rng(seed).integers(0, vocab, size=(B, S)).astype(np.int32)
+
+
+def logits_np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_model_matches_reference(name, dtype):
+    cfg = dataclasses.replace(CONFIGS[name](), dtype=dtype)
+    tol = DTYPES[dtype]
+    ref, params, port = lm_pair(cfg, seed=3)
+    B, S, steps = 2, 6, 5
+    toks = tokens(cfg.vocab, B, S + steps, seed=4)
+    prompt = toks[:, :S]
+
+    want, _, _ = jax.jit(ref.forward)(params, {"tokens": jnp.asarray(toks)})
+    got, aux, _ = port.forward({"tokens": torch.from_numpy(toks).long()})
+    assert got.shape == (B, S + steps, cfg.vocab) and float(aux) == 0.0
+    assert rel_err(logits_np(got), logits_np(want)) <= tol
+
+    want_last, ref_cache = jax.jit(ref.prefill)(params, {"tokens": jnp.asarray(prompt)})
+    got_last, port_cache = port.prefill({"tokens": torch.from_numpy(prompt).long()})
+    assert got_last.shape == (B, 1, cfg.vocab)
+    assert rel_err(logits_np(got_last), logits_np(want_last)) <= tol
+
+    # Full caches two rows short of the steps: the last two steps write past
+    # the end (slot clamps); the window layers wrap their ring buffer.
+    max_seq = S + steps - 2
+    ref_cache = ref_extend_cache(ref, ref_cache, max_seq)
+    port_cache = extend_cache(port, port_cache, max_seq)
+    ref_step = jax.jit(ref.decode_step)
+    for t in range(steps):
+        tok = toks[:, S + t:S + t + 1]
+        want_t, ref_cache = ref_step(params, ref_cache, jnp.asarray(tok), jnp.int32(S + t))
+        got_t, port_cache = port.decode_step(port_cache, torch.from_numpy(tok).long(), S + t)
+        assert rel_err(logits_np(got_t), logits_np(want_t)) <= tol, f"step {t}"
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_prefill_then_decode_matches_forward(name):
+    """The port's own prefill → extend_cache → decode_step equals the last
+    row of ``forward`` (the reference's ``test_models_smoke`` check, with
+    its tolerance)."""
+    cfg = configs.base.ModelConfig(**dataclasses.asdict(CONFIGS[name]()))
+    model = Model(cfg, device="cpu").init_params(torch.Generator().manual_seed(5))
+    B, S = 2, 8
+    toks = torch.from_numpy(tokens(cfg.vocab, B, S + 1, seed=6)).long()
+    full, _, _ = model.forward({"tokens": toks})
+    last, cache = model.prefill({"tokens": toks[:, :S]})
+    assert torch.equal(last[:, 0], full[:, S - 1])
+    cache = extend_cache(model, cache, S + 4)
+    dec, new_cache = model.decode_step(cache, toks[:, S:], S)
+    assert new_cache is cache
+    assert rel_err(logits_np(dec[:, 0]), logits_np(full[:, -1])) <= 1e-3
+
+
+def test_seeded_weights_are_reproducible_and_truncated():
+    a = build("qwen3-0.6b", smoke=True, device="cpu", seed=7)
+    b = build("qwen3-0.6b", smoke=True, device="cpu", seed=7)
+    c = build("qwen3-0.6b", smoke=True, device="cpu", seed=8)
+    for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(pa, pb), name
+    assert not torch.equal(a.embed_table, c.embed_table)
+    w = a.layers[0].wq.float()
+    assert w.abs().max() <= 0.04 * (1 + 2**-8)  # ±2σ, then rounded to bf16
+    assert 0.01 < float(w.std()) < 0.03
+    assert torch.equal(a.layers[1].q_norm, torch.ones_like(a.layers[1].q_norm))
+    assert a.embed_table.dtype == torch.bfloat16 and a.final_norm.dtype == torch.float32
+    assert len(a.layers) == a.cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-9b", "xlstm-350m",
+                                  "whisper-large-v3", "phi-3-vision-4.2b"])
+def test_later_slices_raise(arch):
+    with pytest.raises(NotImplementedError):
+        build(arch, smoke=True, device="cpu")
+
+
+def test_training_is_a_later_slice():
+    model = build("smollm-360m", smoke=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        model.loss_fn({"tokens": torch.zeros(1, 4, dtype=torch.long)})
+
+
+def test_configs_are_the_references():
+    assert configs.ARCHS == ref_configs.ARCHS
+    for arch in configs.ARCHS:
+        assert dataclasses.asdict(configs.get(arch)) == dataclasses.asdict(ref_configs.get(arch))
+        assert dataclasses.asdict(configs.get_smoke(arch)) == dataclasses.asdict(
+            ref_configs.get_smoke(arch))

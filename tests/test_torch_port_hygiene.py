@@ -4,9 +4,11 @@
   the reference package ``repro`` (an AST scan, so a lazy import inside a
   function counts too).
 * The port's entry points run on the card unless the caller asks for the
-  CPU: without CUDA, ``rstorm-search`` raises unless ``device="cpu"``.
-* The CUDA build targets Hopper (``sm_90a``) with ``-fmad=false``.
-* The kernel's argument struct is packed from the uploaded arena and model.
+  CPU: without CUDA, ``rstorm-search``, ``build``, ``Model`` and
+  ``ServingEngine`` raise unless ``device="cpu"``.
+* The CUDA build targets Hopper (``sm_90a``) with ``-fmad=false``, for every
+  source in ``csrc/``.
+* The kernels' argument structs match their C layouts.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ def test_port_modules_do_not_load_jax_or_reference(tmp_path):
 
     code = (
         "import sys, repro_torch.core, repro_torch.stream, repro_torch.build\n"
-        "import repro_torch.core.search.kernels\n"
+        "import repro_torch.core.search.kernels, repro_torch.kernels, repro_torch.models\n"
+        "import repro_torch.serve, repro_torch.configs, repro_torch.data\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
@@ -77,6 +80,24 @@ def test_search_needs_a_card_unless_cpu_is_asked(monkeypatch):
         ba.to(None)
 
 
+def test_lm_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import Model, build as build_model
+    from repro_torch.serve import ServingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke("qwen3-0.6b")
+    for make in (lambda: build_model("qwen3-0.6b", smoke=True), lambda: Model(cfg),
+                 lambda: build_model("qwen3-0.6b", smoke=True, device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    model = build_model("qwen3-0.6b", smoke=True, device="cpu")
+    assert model.device.type == "cpu" and Model(cfg, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(model)
+    assert ServingEngine(model, device="cpu").device.type == "cpu"
+
+
 def test_port_registry_is_its_own():
     import repro.core as R
 
@@ -88,16 +109,46 @@ def test_port_registry_is_its_own():
         P.get_scheduler("rstorm-search", init="all-registered", device="cpu")
 
 
+CUDA_SOURCES = sorted(p.stem for p in (REPO / "src" / "repro_torch" / "csrc").glob("*.cu"))
+
+
+def test_every_cuda_source_is_a_kernel_of_the_port():
+    assert CUDA_SOURCES == ["decode_attention", "flash_attention", "fused_score"]
+
+
 def test_build_command_targets_hopper_without_fma(monkeypatch):
     monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
-    out = build.library_path("fused_score")
-    cmd = build.build_command("fused_score", out)
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-fmad=false" in cmd
-    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
-    assert cmd[-1].endswith("csrc/fused_score.cu")
-    assert out.parent == REPO / "build" / "kernels"
-    assert out.name.startswith("fused_score-") and out.suffix == ".so"
+    for name in CUDA_SOURCES:
+        out = build.library_path(name)
+        cmd = build.build_command(name, out)
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-fmad=false" in cmd
+        assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+        assert cmd[-1].endswith(f"csrc/{name}.cu")
+        assert out.parent == REPO / "build" / "kernels"
+        assert out.name.startswith(f"{name}-") and out.suffix == ".so"
+
+
+@pytest.mark.parametrize("module,struct", [
+    ("repro_torch.kernels.flash.flash_attention", "_FlashArgs"),
+    ("repro_torch.kernels.decode_attn.decode_attention", "_DecodeArgs"),
+])
+def test_attention_argument_structs_match_their_c_layout(module, struct):
+    """Pointers and strides are 8 bytes, then one float and the ints (4
+    bytes each), padded to 8 — the layout of the C struct, whose fields are
+    listed in the same order in the .cu source."""
+    mod = importlib.import_module(module)
+    cls = getattr(mod, struct)
+    n8 = len(mod._PTR_FIELDS) + len(mod._STRIDE_FIELDS)
+    n4 = 1 + len(mod._INT_FIELDS)
+    assert ctypes.sizeof(cls) == 8 * n8 + 4 * n4 + (4 * n4) % 8
+    source = (REPO / "src" / "repro_torch" / "csrc" / f"{mod.__name__.split('.')[-1]}.cu").read_text()
+    body = source[source.index("struct " + struct[1:]):]
+    declared = []
+    for line in body[:body.index("};")].splitlines()[1:]:
+        if ";" in line:  # "long long q_sb, q_sh, q_ss;  // ..." declares three
+            declared += [part.split()[-1] for part in line.split(";")[0].replace("*", " ").split(",")]
+    assert declared == [n for n, _ in cls._fields_]
 
 
 def test_kernel_arguments_pack_from_uploaded_arena():

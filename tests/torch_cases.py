@@ -121,3 +121,27 @@ def without_hard_dims(ba):
         avail=np.zeros((ba.n_nodes, 0)),
         hard_demand=np.zeros((ba.n_tasks, 0)),
     )
+
+
+# -- LM substrate ------------------------------------------------------------------
+def rel_err(got, ref) -> float:
+    """max |got - ref| / max |ref|, in f32 — the reference's kernel-test
+    measure (``tests/test_kernels.py::assert_close``)."""
+    got = np.asarray(got, np.float32)
+    ref = np.asarray(ref, np.float32)
+    return float(np.max(np.abs(got - ref)) / max(float(np.max(np.abs(ref))), 1e-6))
+
+
+def lm_pair(cfg, seed=0):
+    """The reference model with its seeded parameters, and the port's model
+    on the CPU carrying the same parameters (``params_from_jax``)."""
+    import jax
+
+    from repro.models.lm import Model as RefModel
+    from repro_torch.models import Model as PortModel, params_from_jax
+
+    ref = RefModel(cfg)
+    params = ref.init_params(jax.random.PRNGKey(seed))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    port = params_from_jax(PortModel(cfg, device="cpu"), tree)
+    return ref, params, port

@@ -29,17 +29,22 @@ Phases (any failure exits non-zero before the result line is printed):
 6. attention kernels against their plain versions on the card (relative
    max error ≤ 1e-4 in f32, ≤ 3e-2 in bf16): flash on four shapes under
    causal, bidirectional and window-256 masks, decode at B=8 / cache 4096
-   over five lengths (host and device lengths) and at G=3 / hd 64; times of
-   kernel, plain version and ``scaled_dot_product_attention`` (a yardstick,
-   never on the path) at the main path's shapes, with the card's bound;
+   over five lengths (host and device lengths) and at G=3 / hd 64; then
+   both through the model-layout ops (strided views) at the shapes phase 7
+   gives them: flash over 4 × 2048 and 4 × 2047 tokens, decode at B=4 /
+   cache 2112 and at the engine's B=8 / cache 512; times of kernel, plain
+   version and ``scaled_dot_product_attention`` (a yardstick, never on the
+   path) at phase 7's shapes, with the card's bound, and the decode
+   kernel's time at B=8 / cache 4096 as an extra shape;
 7. main path: qwen3-0.6b at full width and depth with seeded bf16 weights —
    ``prefill`` of 4 × 2048 tokens, ``extend_cache`` to 2112, 64 greedy
    ``decode_step``s, ``forward`` against prefill + one decode step, and
    ``ServingEngine(batch_slots=8, max_seq=512)`` serving 16 requests of 32
    new tokens; the launch counters must show 28 flash launches per forward
    and 28 decode launches per step;
-8. the same weights and prompts through the plain attention path: prefill
-   logits and 16 teacher-forced decode steps within 3e-2 of the kernel path.
+8. the same weights and prompts with the model's attention ops bound to
+   the plain versions: prefill logits and 16 teacher-forced decode steps
+   within 3e-2 of the kernel path.
 
 Each phase prints its seconds.  The second-to-last lines are the card's
 nvidia-smi line and a JSON object with the three kernels' numbers; the last
@@ -79,6 +84,12 @@ FLASH_MASKS = [(True, None), (False, None), (True, 256)]
 #: (B, H, Kv, S, hd, lengths) of the decode checks.
 DECODE_CASES = [(8, 16, 8, 4096, 128, (1, 511, 512, 513, 4096)),
                 (4, 15, 5, 1024, 64, (1, 333, 1024))]
+#: The shapes phase 7 gives the model-layout ops (H=16, Kv=8, hd=128):
+#: flash (B, S) of prefill and of the prefill of S - 1 tokens; decode
+#: (B, cache, lengths) of the 64 decode steps and of the engine (prompts of
+#: up to 128 tokens plus 32 new ones).
+FLASH_OP_CASES = [(4, 2048), (4, 2047)]
+DECODE_OP_CASES = [(4, 2112, (2049, 2080, 2112)), (8, 512, (1, 17, 100, 160))]
 
 
 def fail(msg: str) -> None:
@@ -412,9 +423,10 @@ def lm_phases(attention_build, dev) -> list:
     the two kernels' entries of the ``kernels`` line."""
     import torch.nn.functional as F
 
+    import repro_torch.models.attention as model_attention
     from repro_torch import build
-    from repro_torch.kernels.decode_attn import decode_attention, decode_attention_plain
-    from repro_torch.kernels.flash import flash_attention, flash_attention_plain
+    from repro_torch.kernels.decode_attn import decode_attention, decode_attention_op, decode_attention_plain
+    from repro_torch.kernels.flash import flash_attention, flash_attention_op, flash_attention_plain
     from repro_torch.models import build as build_model, extend_cache
     from repro_torch.serve import Request, ServingEngine
 
@@ -462,31 +474,61 @@ def lm_phases(attention_build, dev) -> list:
                 hold("decode_attention", label + " (device length)",
                      decode_attention(q, k, v, on_card), want, dtype)
                 n_cases += 2
+
+    # The model-layout ops at phase 7's shapes: (B, S, heads, hd) tensors,
+    # which the ops hand the kernels as transposed (strided) views.
+    def plain_flash_op(q, k, v, *, causal=True, window=None):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        return flash_attention_plain(qt, kt, vt, causal=causal, window=window).transpose(1, 2)
+
+    def plain_decode_op(q, k_cache, v_cache, length):
+        return decode_attention_plain(q[:, 0], k_cache.transpose(1, 2), v_cache.transpose(1, 2), length)[:, None]
+
+    H, Kv, hd = 16, 8, 128
+    for dtype in (f32, bf16):
+        for B, S in FLASH_OP_CASES:
+            q, k, v = randn(B, S, H, hd, dtype=dtype), randn(B, S, Kv, hd, dtype=dtype), randn(B, S, Kv, hd, dtype=dtype)
+            hold("flash_attention", f"flash op B={B} S={S} {dtype}", flash_attention_op(q, k, v),
+                 plain_flash_op(q, k, v), dtype)
+            n_cases += 1
+        for B, S, lengths in DECODE_OP_CASES:
+            q, k, v = randn(B, 1, H, hd, dtype=dtype), randn(B, S, Kv, hd, dtype=dtype), randn(B, S, Kv, hd, dtype=dtype)
+            for length in lengths:
+                hold("decode_attention", f"decode op B={B} cache={S} length={length} {dtype}",
+                     decode_attention_op(q, k, v, length), plain_decode_op(q, k, v, length), dtype)
+                n_cases += 1
     print(f"# attention kernels == plain versions within tolerance in {n_cases} cases; "
           f"max abs error {json.dumps(max_abs)}")
 
-    # Times at the main path's shapes, on the strided model-layout views the
-    # model hands the kernels.
-    B, H, Kv, S, hd = 4, 16, 8, 2048, 128
-    q = randn(B, S, H, hd).transpose(1, 2)
-    k, v = (randn(B, S, Kv, hd).transpose(1, 2) for _ in range(2))
-    flash_ms = time_ms(lambda: flash_attention(q, k, v), 20)
-    flash_plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), 5)
-    flash_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), 20)
+    # Times at phase 7's shapes, through the ops on model-layout tensors.
+    B, S = 4, 2048
+    q, k, v = randn(B, S, H, hd), randn(B, S, Kv, hd), randn(B, S, Kv, hd)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    flash_ms = time_ms(lambda: flash_attention_op(q, k, v), 20)
+    flash_plain_ms = time_ms(lambda: plain_flash_op(q, k, v), 5)
+    flash_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 20)
     pairs = S * (S + 1) // 2
     flash_bound = attention_bound_ms(q.numel() * 2, 2 * k.numel() * 2, 4 * B * H * hd * pairs, bf16)
     print(f"# flash_attention B={B} S={S} causal bf16: kernel {flash_ms!r} ms, plain {flash_plain_ms!r} ms, "
           f"sdpa {flash_lib_ms!r} ms, bound {flash_bound[0]!r} ms by {flash_bound[1]}")
-    B, S, L = 8, 4096, 2048
-    q = randn(B, 1, H, hd)[:, 0]
-    k, v = (randn(B, S, Kv, hd).transpose(1, 2) for _ in range(2))
-    decode_ms = time_ms(lambda: decode_attention(q, k, v, L), 50)
-    decode_plain_ms = time_ms(lambda: decode_attention_plain(q, k, v, L), 20)
-    q4, kl, vl = q[:, :, None], k[:, :, :L], v[:, :, :L]
-    decode_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, kl, vl, enable_gqa=True), 50)
-    decode_bound = attention_bound_ms(q.numel() * 2, 2 * B * Kv * L * hd * 2, 4 * B * H * hd * L, bf16)
-    print(f"# decode_attention B={B} cache={S} length={L} bf16: kernel {decode_ms!r} ms, plain "
-          f"{decode_plain_ms!r} ms, sdpa {decode_lib_ms!r} ms, bound {decode_bound[0]!r} ms by {decode_bound[1]}")
+
+    def time_decode(B, S, L, reps):
+        """(kernel, plain, sdpa ms, bound) of one decode call at length L
+        over a model-layout cache of S rows."""
+        q, k, v = randn(B, 1, H, hd), randn(B, S, Kv, hd), randn(B, S, Kv, hd)
+        kernel = time_ms(lambda: decode_attention_op(q, k, v, L), reps)
+        plain = time_ms(lambda: plain_decode_op(q, k, v, L), reps)
+        qt, kl, vl = q.transpose(1, 2), k[:, :L].transpose(1, 2), v[:, :L].transpose(1, 2)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kl, vl, enable_gqa=True), reps)
+        bound = attention_bound_ms(q.numel() * 2, 2 * B * Kv * L * hd * 2, 4 * B * H * hd * L, bf16)
+        print(f"# decode_attention B={B} cache={S} length={L} bf16: kernel {kernel!r} ms, plain {plain!r} ms, "
+              f"sdpa {lib!r} ms, bound {bound[0]!r} ms by {bound[1]}")
+        return kernel, plain, lib, bound
+
+    # The 64 decode steps of phase 7 run lengths 2049..2112; 2080 is their middle.
+    decode_ms, decode_plain_ms, decode_lib_ms, decode_bound = time_decode(4, 2112, 2080, 50)
+    print("# extra shape, not on the main path:")
+    time_decode(8, 4096, 2048, 50)
     phase_t0 = phase_done(6, phase_t0)
 
     # -- 7. main path: qwen3-0.6b at full width and depth -----------------------------
@@ -557,7 +599,10 @@ def lm_phases(attention_build, dev) -> list:
     phase_t0 = phase_done(7, phase_t0)
 
     # -- 8. kernel path against plain path at full width ------------------------------
-    model.plain_attention = True
+    # The model calls its attention ops through repro_torch.models.attention;
+    # binding them there to the plain versions gives the plain path.
+    kernel_ops = model_attention.flash_attention_op, model_attention.decode_attention_op
+    model_attention.flash_attention_op, model_attention.decode_attention_op = plain_flash_op, plain_decode_op
     plain_last, plain_cache = model.prefill({"tokens": prompts})
     err = rel_err(plain_last, last)
     check(err <= 3e-2, f"prefill logits, kernel against plain path: relative error {err!r}")
@@ -574,7 +619,7 @@ def lm_phases(attention_build, dev) -> list:
     check(flash_attention.launches == main_launches["flash_attention"]
           and decode_attention.launches == main_launches["decode_attention"],
           "the plain path launched a kernel")
-    model.plain_attention = False
+    model_attention.flash_attention_op, model_attention.decode_attention_op = kernel_ops
     print(f"# kernel path == plain path: max relative error {max(errors)!r} over prefill and 16 "
           f"teacher-forced steps; greedy tokens agree {agree}/{16 * 4}")
     phase_done(8, phase_t0)

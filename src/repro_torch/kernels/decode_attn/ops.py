@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from .decode_attention import Length, decode_attention, decode_attention_plain
+from .decode_attention import Length, decode_attention
 
 
 def decode_attention_op(
@@ -15,14 +15,9 @@ def decode_attention_op(
     k_cache: torch.Tensor,         # (B, S, Kv, hd)
     v_cache: torch.Tensor,
     length: Length,
-    *,
-    plain: bool = False,
 ) -> torch.Tensor:
     """(B, 1, H, hd) attention of the new token over the first ``length``
-    cache rows.  ``plain=True`` runs the plain torch version on any device
-    (the path the kernel is compared with); otherwise card tensors go
-    through the CUDA kernels."""
+    cache rows: the CUDA kernels for card tensors, the plain version for CPU
+    tensors."""
     kt, vt = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
-    if plain:
-        return decode_attention_plain(q[:, 0], kt, vt, length)[:, None]
     return decode_attention(q[:, 0], kt, vt, length)[:, None]

@@ -11,7 +11,7 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention, flash_attention_plain
+from .flash_attention import flash_attention
 
 
 def flash_attention_op(
@@ -21,14 +21,10 @@ def flash_attention_op(
     *,
     causal: bool = True,
     window: Optional[int] = None,
-    plain: bool = False,
 ) -> torch.Tensor:
-    """(B, S, H, hd) attention output.  ``plain=True`` runs the plain torch
-    version on any device (the path the kernel is compared with); otherwise
-    card tensors go through the CUDA kernel."""
+    """(B, S, H, hd) attention output: the CUDA kernel for card tensors,
+    the plain version for CPU tensors."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    if plain:
-        return flash_attention_plain(qt, kt, vt, causal=causal, window=window).transpose(1, 2)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     flash_attention(qt, kt, vt, causal=causal, window=window, out=out.transpose(1, 2))
     return out

@@ -6,7 +6,7 @@ goes through the kernel ops: ``flash_attention_op`` for the forward pass
 (the reference's ``_sdpa`` and ``_sdpa_blocked`` are one function, which the
 flash kernel computes) and ``decode_attention_op`` for decode.  On card
 tensors they launch the CUDA kernels, on CPU tensors they take the plain
-versions; ``plain=True`` takes the plain versions on any device.  Scores
+versions.  Scores
 are f32, as in the kernels (the reference's ``_sdpa`` forms them in the
 compute dtype).  Cross-attention (whisper) is a later slice.
 
@@ -62,14 +62,13 @@ def attention_forward(
     *,
     window: Optional[int] = None,
     causal: bool = True,
-    plain: bool = False,
 ) -> Tuple[torch.Tensor, Cache]:
     """Full-sequence attention.  Returns (out (B,S,D), kv cache pieces)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = flash_attention_op(q, k, v, causal=causal, window=window, plain=plain)
+    out = flash_attention_op(q, k, v, causal=causal, window=window)
     out = out.reshape(B, S, -1) @ p["wo"]
     # Cache for decode continuation: ring-buffered if windowed, rolled so
     # that slot (pos % window) holds position pos.
@@ -95,7 +94,6 @@ def attention_decode(
     pos: int,                   # index of the new token
     *,
     window: Optional[int] = None,
-    plain: bool = False,
 ) -> Tuple[torch.Tensor, Cache]:
     B = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x)
@@ -109,6 +107,6 @@ def attention_decode(
     slot = pos % S if window else min(pos, S - 1)
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
-    out = decode_attention_op(q, cache["k"], cache["v"], min(pos + 1, S), plain=plain)
+    out = decode_attention_op(q, cache["k"], cache["v"], min(pos + 1, S))
     out = out.reshape(B, 1, -1) @ p["wo"]
     return out, cache

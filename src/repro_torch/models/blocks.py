@@ -89,12 +89,11 @@ def block_forward(
     positions: torch.Tensor,
     *,
     causal: bool = True,
-    plain: bool = False,
 ) -> Tuple[torch.Tensor, attn.Cache]:
     """Full-sequence pass.  Returns (x, decode cache)."""
     mixed, cache = attn.attention_forward(
         cfg, p, rms_norm(x, p["ln1"]), positions,
-        window=_window(cfg, kind), causal=causal, plain=plain,
+        window=_window(cfg, kind), causal=causal,
     )
     return _mix_ffn(p, x, mixed), cache
 
@@ -111,10 +110,8 @@ def block_decode(
     x: torch.Tensor,            # (B, 1, D)
     cache: attn.Cache,
     pos: int,
-    *,
-    plain: bool = False,
 ) -> Tuple[torch.Tensor, attn.Cache]:
     mixed, cache = attn.attention_decode(
-        cfg, p, rms_norm(x, p["ln1"]), cache, pos, window=_window(cfg, kind), plain=plain,
+        cfg, p, rms_norm(x, p["ln1"]), cache, pos, window=_window(cfg, kind),
     )
     return _mix_ffn(p, x, mixed), cache

@@ -49,14 +49,11 @@ class Model(nn.Module):
     """A decoder-only LM bound to a ``ModelConfig``, on one device.
 
     ``device=None`` means the card and raises without one; pass
-    ``device="cpu"`` for the CPU.  ``plain_attention=True`` runs the plain
-    torch attention on any device instead of the CUDA kernels (the path the
-    kernels are compared with).  Parameters are allocated uninitialized:
+    ``device="cpu"`` for the CPU.  Parameters are allocated uninitialized:
     call ``init_params`` or load them (``convert.params_from_jax``).
     """
 
-    def __init__(self, cfg: ModelConfig, device: DeviceLike = None, *,
-                 plain_attention: bool = False):
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
         if cfg.vision_prefix > 0 or cfg.enc_dec:
             raise NotImplementedError(
@@ -66,7 +63,6 @@ class Model(nn.Module):
         self.device = resolve_device(device)
         self.dtype = dtype_of(cfg.dtype)
         self.pdtype = dtype_of(cfg.param_dtype)
-        self.plain_attention = plain_attention
         D, V = cfg.d_model, cfg.vocab
         self.embed_table = _param((V, D), self.dtype, self.device)
         self.final_norm = _param((D,), self.pdtype, self.device)
@@ -124,9 +120,7 @@ class Model(nn.Module):
         positions = torch.arange(S, device=self.device).expand(B, S)
         caches = []
         for layer in self.layers:
-            x, cache = blocks.block_forward(
-                self.cfg, layer.kind, layer.params(), x, positions, plain=self.plain_attention
-            )
+            x, cache = blocks.block_forward(self.cfg, layer.kind, layer.params(), x, positions)
             if collect_cache:
                 caches.append(cache)
         return rms_norm(x, self.final_norm), caches if collect_cache else None
@@ -158,8 +152,5 @@ class Model(nn.Module):
         returned."""
         x = self.embed(token)
         for layer, layer_cache in zip(self.layers, cache):
-            x, _ = blocks.block_decode(
-                self.cfg, layer.kind, layer.params(), x, layer_cache, int(pos),
-                plain=self.plain_attention,
-            )
+            x, _ = blocks.block_decode(self.cfg, layer.kind, layer.params(), x, layer_cache, int(pos))
         return self.unembed(rms_norm(x, self.final_norm)), cache

@@ -18,7 +18,6 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
 from ..models.lm import Model
 
 
@@ -34,13 +33,10 @@ class Request:
 class ServingEngine:
     """Fixed-slot batched decoding.  Admission fills empty slots; every step
     decodes one token for all active slots (padding token for idle ones).
-    ``device=None`` means the card; the model must live on the device."""
+    The engine runs on its model's device."""
 
-    def __init__(self, model: Model, batch_slots: int = 4, max_seq: int = 256,
-                 device: DeviceLike = None):
-        self.device = resolve_device(device)
-        if model.device != self.device:
-            raise ValueError(f"model on {model.device}, engine on {self.device}")
+    def __init__(self, model: Model, batch_slots: int = 4, max_seq: int = 256):
+        self.device = model.device
         self.model = model
         self.slots = batch_slots
         self.max_seq = max_seq

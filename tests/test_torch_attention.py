@@ -96,8 +96,9 @@ def test_flash_op_model_layout(mask, dtype):
     assert got.shape == (B, S, H, hd) and got.is_contiguous()
     want = ref_flash_op(qj, kj, vj, causal=causal, window=window, interpret=True)
     assert rel_err(as_np(got), as_np(want)) <= DTYPES[dtype][2]
-    plain = flash_attention_op(qt, kt, vt, causal=causal, window=window, plain=True)
-    assert torch.equal(got, plain)
+    plain = flash_attention_plain(qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2),
+                                  causal=causal, window=window)
+    assert torch.equal(got, plain.transpose(1, 2))
 
 
 def test_flash_plain_rejects_what_the_kernel_does_not_take():
@@ -148,7 +149,8 @@ def test_decode_op_model_layout(dtype):
         assert got.shape == (B, 1, H, hd)
         want = ref_decode_op(qj, kj, vj, length, block_k=64, interpret=True)
         assert rel_err(as_np(got), as_np(want)) <= DTYPES[dtype][2]
-        assert torch.equal(got, decode_attention_op(qt, kt, vt, length, plain=True))
+        plain = decode_attention_plain(qt[:, 0], kt.transpose(1, 2), vt.transpose(1, 2), length)
+        assert torch.equal(got, plain[:, None])
 
 
 def test_decode_plain_is_flash_on_the_last_row():

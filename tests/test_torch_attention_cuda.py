@@ -96,11 +96,26 @@ def test_decode_kernel_matches_plain(card, shape, lengths, dtype):
 def test_ops_read_model_layout_views(card, dtype):
     B, S, H, Kv, hd = 2, 300, 16, 8, 128
     q, k, v = randn(card, 3, (B, S, H, hd), (B, S, Kv, hd), (B, S, Kv, hd), dtype=dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     got = flash_attention_op(q, k, v, window=64)
     assert got.is_contiguous()
-    assert rel_err(got, flash_attention_op(q, k, v, window=64, plain=True)) <= TOL[dtype]
+    assert rel_err(got, flash_attention_plain(qt, kt, vt, window=64).transpose(1, 2)) <= TOL[dtype]
     got = decode_attention_op(q[:, :1], k, v, 200)
-    assert rel_err(got, decode_attention_op(q[:, :1], k, v, 200, plain=True)) <= TOL[dtype]
+    assert rel_err(got[:, 0], decode_attention_plain(q[:, 0], kt, vt, 200)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("B,S,lengths", [(4, 2112, (2049, 2080, 2112)), (8, 512, (1, 17, 100, 160))],
+                         ids=["decode_steps", "engine"])
+def test_decode_op_at_main_path_shapes(card, B, S, lengths, dtype):
+    """The decode shapes of ``chip_smoke.py`` phase 7, through the op on
+    model-layout caches (strided views)."""
+    H, Kv, hd = 16, 8, 128
+    q, k, v = randn(card, 8, (B, 1, H, hd), (B, S, Kv, hd), (B, S, Kv, hd), dtype=dtype)
+    for length in lengths:
+        got = decode_attention_op(q, k, v, length)
+        want = decode_attention_plain(q[:, 0], k.transpose(1, 2), v.transpose(1, 2), length)
+        assert rel_err(got[:, 0], want) <= TOL[dtype], length
 
 
 def test_kernels_refuse_other_dtypes(card):
@@ -145,9 +160,9 @@ def test_engine_on_card_matches_cpu(card):
     rng = np.random.default_rng(7)
     specs = [(int(rng.integers(3, 10)), int(rng.integers(2, 8))) for _ in range(7)]
 
-    def serve(model, device):
+    def serve(model):
         reqs = [Request(i, np.random.default_rng(i).integers(0, cfg.vocab, size=n).astype(np.int32),
                         max_new_tokens=new) for i, (n, new) in enumerate(specs)]
-        return [r.output for r in ServingEngine(model, 3, 32, device=device).run(reqs)]
+        return [r.output for r in ServingEngine(model, 3, 32).run(reqs)]
 
-    assert serve(on_card, "cuda") == serve(on_cpu, "cpu")
+    assert serve(on_card) == serve(on_cpu)

@@ -19,6 +19,7 @@ pytest.importorskip("jax")
 
 from repro import configs as ref_configs  # noqa: E402
 from repro.serve import Request as RefRequest, ServingEngine as RefEngine  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
 from repro_torch.serve import Request, ServingEngine  # noqa: E402
 from torch_cases import lm_pair  # noqa: E402
 
@@ -41,7 +42,7 @@ def test_engine_tokens_match_reference(arch, slots, max_seq, specs):
     ref, params, port = lm_pair(cfg, seed=11)
     want = RefEngine(ref, params, batch_slots=slots, max_seq=max_seq).run(
         requests(RefRequest, cfg.vocab, specs, seed=12))
-    engine = ServingEngine(port, batch_slots=slots, max_seq=max_seq, device="cpu")
+    engine = ServingEngine(port, batch_slots=slots, max_seq=max_seq)
     got = engine.run(requests(Request, cfg.vocab, specs, seed=12))
     assert [r.output for r in got] == [r.output for r in want]
     assert all(r.done for r in got) and all(r.output for r in got)
@@ -51,7 +52,8 @@ def test_engine_tokens_match_reference(arch, slots, max_seq, specs):
 def test_engine_needs_the_models_device():
     cfg = dataclasses.replace(ref_configs.get_smoke("qwen3-0.6b"), dtype="float32")
     _, _, port = lm_pair(cfg)
-    engine = ServingEngine(port, batch_slots=2, max_seq=16, device="cpu")
+    engine = ServingEngine(port, batch_slots=2, max_seq=16)
+    assert engine.device == port.device == engine.cache[0]["k"].device
     assert engine.cache[0]["k"].shape == (2, 16, cfg.n_kv_heads, cfg.head_dim)
     with pytest.raises(ValueError, match="use 'cuda' or 'cpu'"):
-        ServingEngine(port, device="meta")
+        Model(port.cfg, device="meta")

@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port on one CUDA card: the placement search and
-LM serving on qwen3-0.6b.
+"""Drive the PyTorch/CUDA port on one CUDA card: the placement search, LM
+serving on qwen3-0.6b and MoE serving on olmoe-1b-7b.
 
 Run from the repository root with no arguments::
 
@@ -23,31 +23,48 @@ Phases (any failure exits non-zero before the result line is printed):
 4. card against CPU: the same schedules with ``device="cpu"`` and
    ``device="cuda"`` give identical placements on the §6 suite (16 chains ×
    150 steps) and on the flagship case (64 chains × 200 steps);
-5. attention build: ``flash_attention.cu`` and ``decode_attention.cu``
-   (started in the background with phase 1, one nvcc each), their build
-   seconds and ptxas reports;
-6. attention kernels against their plain versions on the card (relative
-   max error ≤ 1e-4 in f32, ≤ 3e-2 in bf16): flash on four shapes under
-   causal, bidirectional and window-256 masks, decode at B=8 / cache 4096
-   over five lengths (host and device lengths) and at G=3 / hd 64; then
-   both through the model-layout ops (strided views) at the shapes phase 7
-   gives them: flash over 4 × 2048 and 4 × 2047 tokens, decode at B=4 /
-   cache 2112 and at the engine's B=8 / cache 512; times of kernel, plain
-   version and ``scaled_dot_product_attention`` (a yardstick, never on the
-   path) at phase 7's shapes, with the card's bound, and the decode
-   kernel's time at B=8 / cache 4096 as an extra shape;
+5. LM kernel build: ``flash_attention.cu``, ``decode_attention.cu`` and
+   ``grouped_gemm.cu`` (started in the background with phase 1, one nvcc
+   each), their build seconds and ptxas reports;
+6. LM kernels against their plain versions on the card (relative max error
+   ≤ 1e-4 in f32, ≤ 3e-2 in bf16): flash on four shapes under causal,
+   bidirectional and window-256 masks, decode at B=8 / cache 4096 over five
+   lengths (host and device lengths) and at G=3 / hd 64; both through the
+   model-layout ops (strided views) at the shapes phases 7 and 9 give them;
+   the grouped GEMM at olmoe-1b-7b's prefill and decode shapes, the
+   reference sweep's shapes and ragged ones.  Times of kernel, plain
+   version and a PyTorch yardstick (``scaled_dot_product_attention``,
+   ``torch.bmm``; never on the path) at the main paths' shapes, with the
+   card's bound;
 7. main path: qwen3-0.6b at full width and depth with seeded bf16 weights —
    ``prefill`` of 4 × 2048 tokens, ``extend_cache`` to 2112, 64 greedy
-   ``decode_step``s, ``forward`` against prefill + one decode step, and
-   ``ServingEngine(batch_slots=8, max_seq=512)`` serving 16 requests of 32
-   new tokens; the launch counters must show 28 flash launches per forward
-   and 28 decode launches per step;
+   ``decode_step``s, ``forward``, and ``ServingEngine(batch_slots=8,
+   max_seq=512)`` serving 16 requests of 32 new tokens; 28 flash launches
+   per forward and 28 decode launches per step; ``forward``'s last position
+   against prefill of S - 1 + one decode step within 3e-2;
 8. the same weights and prompts with the model's attention ops bound to
    the plain versions: prefill logits and 16 teacher-forced decode steps
-   within 3e-2 of the kernel path.
+   within 3e-2 of the kernel path;
+9. main path: olmoe-1b-7b (64 experts, top-8) at full width and depth, as
+   phase 7, with ``ServingEngine(batch_slots=8, max_seq=256)`` serving 8
+   requests of 16 new tokens; 48 grouped-GEMM and 16 flash launches per
+   forward, 48 grouped-GEMM and 16 decode launches per step; the check of
+   ``forward`` against prefill + decode at the dropless capacity factor
+   E / K;
+10. olmoe-1b-7b with the model's attention ops and grouped GEMM bound to
+   the plain versions, in bf16 (within 3e-2) and in f32 (prefill of
+   4 × 256, 8 steps; the sequences routed alike, within 1e-4).  Token rows
+   routed to another expert set at some layer are counted and printed, and
+   the plain path is run again on the kernel path's experts, every row
+   within the same tolerance.
+
+Phases 7 and 9 share one path (``serving_main_path``), and 8 and 10 one
+comparison (``compare``).  The launch counters are set to 0 after each
+model's warm-up; the ``launches`` of the kernels line are those of the two
+main paths, without the forward-against-decode checks and the plain paths.
 
 Each phase prints its seconds.  The second-to-last lines are the card's
-nvidia-smi line and a JSON object with the three kernels' numbers; the last
+nvidia-smi line and a JSON object with the four kernels' numbers; the last
 line is the device contract line.
 """
 
@@ -73,7 +90,7 @@ PEAK_FP64_OPS_PER_S = 34e12 / 2
 #: (the same data sheet): the peaks for attention on bf16 and f32 inputs.
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-ATTENTION_KERNELS = ["flash_attention", "decode_attention"]
+LM_KERNELS = ["flash_attention", "decode_attention", "grouped_gemm"]
 #: Relative max error of a kernel against its plain version: the
 #: reference's own ``tol_for`` (tests/test_kernels.py).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -84,12 +101,30 @@ FLASH_MASKS = [(True, None), (False, None), (True, 256)]
 #: (B, H, Kv, S, hd, lengths) of the decode checks.
 DECODE_CASES = [(8, 16, 8, 4096, 128, (1, 511, 512, 513, 4096)),
                 (4, 15, 5, 1024, 64, (1, 333, 1024))]
-#: The shapes phase 7 gives the model-layout ops (H=16, Kv=8, hd=128):
-#: flash (B, S) of prefill and of the prefill of S - 1 tokens; decode
-#: (B, cache, lengths) of the 64 decode steps and of the engine (prompts of
-#: up to 128 tokens plus 32 new ones).
-FLASH_OP_CASES = [(4, 2048), (4, 2047)]
-DECODE_OP_CASES = [(4, 2112, (2049, 2080, 2112)), (8, 512, (1, 17, 100, 160))]
+#: The shapes phases 7 (qwen3-0.6b: H=16, Kv=8) and 9 (olmoe-1b-7b: H=Kv=16)
+#: give the model-layout ops, hd=128: flash (B, S, H, Kv) of prefill and of
+#: the prefill of S - 1 tokens; decode (B, cache, H, Kv, lengths) of the 64
+#: decode steps and of the engine (qwen3: prompts of up to 128 tokens plus
+#: 32 new ones; olmoe: up to 64 plus 16).
+FLASH_OP_CASES = [(4, 2048, 16, 8), (4, 2047, 16, 8), (4, 2048, 16, 16), (4, 2047, 16, 16)]
+DECODE_OP_CASES = [(4, 2112, 16, 8, (2049, 2080, 2112)), (8, 512, 16, 8, (1, 17, 100, 160)),
+                   (4, 2112, 16, 16, (2049, 2080, 2112)), (8, 256, 16, 16, (1, 17, 64, 80))]
+#: (E, C, D, F) of the grouped-GEMM checks: olmoe-1b-7b's prefill (4 × 2048
+#: tokens, C = 1280) and decode (C = 8) shapes for wi/wu and for wd; the
+#: reference sweep's shapes (tests/test_kernels.py); ragged ones.
+GG_MAIN = {"prefill wi/wu": (64, 1280, 2048, 1024), "prefill wd": (64, 1280, 1024, 2048),
+           "decode wi/wu": (64, 8, 2048, 1024), "decode wd": (64, 8, 1024, 2048)}
+GG_CASES = (list(GG_MAIN.values())
+            + [(e, c, d, f) for e in (1, 4, 8) for c in (128, 256) for d in (128, 256) for f in (128, 384)]
+            + [(3, 24, 200, 72), (2, 7, 13, 5), (5, 1, 64, 33), (4, 8, 96, 40), (2, 130, 36, 129)])
+
+#: The models phases 7-10 serve, with their main paths' engine runs:
+#: phase, seed of the prompts (the requests' is the next), batch slots,
+#: max_seq, requests, prompt lengths [lo, hi) and new tokens per request.
+SERVED = {
+    "qwen3-0.6b": dict(phase=7, seed=7, slots=8, max_seq=512, requests=16, prompt_len=(16, 129), new_tokens=32),
+    "olmoe-1b-7b": dict(phase=9, seed=9, slots=8, max_seq=256, requests=8, prompt_len=(16, 65), new_tokens=16),
+}
 
 
 def fail(msg: str) -> None:
@@ -159,10 +194,10 @@ def main() -> None:
     smi = smi_line()
     print(f"# device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # The attention kernels build in the background while the search phases
-    # run (one nvcc per source, all started together); phase 5 waits.
+    # The LM kernels build in the background while the search phases run
+    # (one nvcc per source, all started together); phase 5 waits.
     build_pool = ThreadPoolExecutor(max_workers=1)
-    attention_build = build_pool.submit(build.build_all, ATTENTION_KERNELS)
+    lm_build = build_pool.submit(build.build_all, LM_KERNELS)
 
     # -- 1. build ---------------------------------------------------------------
     phase_t0 = time.perf_counter()
@@ -339,7 +374,7 @@ def main() -> None:
 
     phase_done(4, phase_t0)
 
-    attention_entries = lm_phases(attention_build, dev)
+    lm_entries = lm_phases(lm_build, dev)
     build_pool.shutdown()
 
     kernels = {"kernels": [{
@@ -354,7 +389,7 @@ def main() -> None:
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,
-    }] + attention_entries}
+    }] + lm_entries}
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
@@ -410,42 +445,106 @@ def ptxas_summary(log: str) -> list:
     return lines
 
 
-def attention_bound_ms(q_bytes: int, kv_bytes: int, ops: int, dtype) -> tuple:
-    """(bound ms, what bounds it): each input read once and the output
-    (q's size) written once, against the operations at the dtype's peak."""
-    bytes_ms = (2 * q_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3
+def roofline_ms(bytes_moved: int, ops: int, dtype) -> tuple:
+    """(bound ms, what bounds it): the bytes the function must move (each
+    input read once, each output written once) against the card's memory
+    rate, and its operations against the dtype's peak."""
+    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def lm_phases(attention_build, dev) -> list:
-    """Phases 5-8: the attention kernels and qwen3-0.6b serving.  Returns
-    the two kernels' entries of the ``kernels`` line."""
-    import torch.nn.functional as F
+def launch_counts() -> dict:
+    """The LM kernels' launch counters, by kernel name."""
+    from repro_torch.kernels.decode_attn import decode_attention
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.moe_gemm import grouped_gemm
 
-    import repro_torch.models.attention as model_attention
+    return {k.__name__: k.launches for k in (flash_attention, decode_attention, grouped_gemm)}
+
+
+def set_launch_counts(counts: dict) -> None:
+    from repro_torch.kernels.decode_attn import decode_attention
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.moe_gemm import grouped_gemm
+
+    for k in (flash_attention, decode_attention, grouped_gemm):
+        k.launches = counts[k.__name__]
+
+
+def lm_phases(lm_build, dev) -> list:
+    """Phases 5-10: the LM kernels, then qwen3-0.6b and olmoe-1b-7b serving,
+    each followed by its kernel path against the plain path.  Returns the
+    three kernels' entries of the ``kernels`` line; their launches are those
+    of the two serving main paths (phases 7 and 9)."""
     from repro_torch import build
-    from repro_torch.kernels.decode_attn import decode_attention, decode_attention_op, decode_attention_plain
-    from repro_torch.kernels.flash import flash_attention, flash_attention_op, flash_attention_plain
-    from repro_torch.models import build as build_model, extend_cache
-    from repro_torch.serve import Request, ServingEngine
-
-    bf16, f32 = torch.bfloat16, torch.float32
 
     # -- 5. build ----------------------------------------------------------------
     phase_t0 = time.perf_counter()
-    for name, secs in attention_build.result().items():
+    for name, secs in lm_build.result().items():
         print(f"# build: {name} in {secs:.2f} s (started with phase 1, in parallel)")
         print("\n".join(ptxas_summary(build.library_path(name).with_suffix(".log").read_text())))
     phase_t0 = phase_done(5, phase_t0)
 
-    # -- 6. kernels against their plain versions ------------------------------------
+    timing, max_abs = lm_kernel_checks(dev)
+    phase_done(6, phase_t0)
+
+    launches = {}
+    for arch, shape in SERVED.items():
+        main = serving_main_path(arch, shape, dev, timing)
+        launches[arch] = main.pop("launches")
+        kernel_path_against_plain(main, shape["phase"] + 1, dev)
+        del main
+        torch.cuda.empty_cache()
+    check(launches["qwen3-0.6b"]["grouped_gemm"] == 0, "qwen3-0.6b launched grouped_gemm")
+    print(f"# main path launches by model: {json.dumps(launches)}")
+
+    def entry(name, replaces, shape):
+        ms, plain_ms, library_ms, bound = timing[name][shape]
+        return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": sum(run[name] for run in launches.values()),
+                "max_abs_err": max_abs[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
+
+    return [
+        entry("flash_attention", "src/repro/kernels/flash/flash_attention.py:26", "qwen3-0.6b"),
+        entry("decode_attention", "src/repro/kernels/decode_attn/decode_attention.py:23", "qwen3-0.6b"),
+        entry("grouped_gemm", "src/repro/kernels/moe_gemm/grouped_gemm.py:19", "prefill wi/wu"),
+    ]
+
+
+def plain_flash_op(q, k, v, *, causal=True, window=None):
+    """The flash op's plain version on model-layout (B, S, H, hd) tensors."""
+    from repro_torch.kernels.flash import flash_attention_plain
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return flash_attention_plain(qt, kt, vt, causal=causal, window=window).transpose(1, 2)
+
+
+def plain_decode_op(q, k_cache, v_cache, length):
+    """The decode op's plain version on model-layout caches."""
+    from repro_torch.kernels.decode_attn import decode_attention_plain
+
+    return decode_attention_plain(q[:, 0], k_cache.transpose(1, 2), v_cache.transpose(1, 2), length)[:, None]
+
+
+def lm_kernel_checks(dev):
+    """Phase 6: each LM kernel against its plain version, and their times.
+    Returns ``({kernel: {shape label: (ms, plain ms, library ms, bound)}},
+    {kernel: max abs error})``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn import decode_attention, decode_attention_op, decode_attention_plain
+    from repro_torch.kernels.flash import flash_attention, flash_attention_op, flash_attention_plain
+    from repro_torch.kernels.moe_gemm import grouped_gemm, grouped_gemm_plain
+
+    bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(6)
 
-    def randn(*shape, dtype=bf16):
-        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+    def randn(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale).to(dtype)
 
-    max_abs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    max_abs = {name: 0.0 for name in LM_KERNELS}
 
     def hold(name, label, got, want, dtype):
         torch.cuda.synchronize()
@@ -475,44 +574,46 @@ def lm_phases(attention_build, dev) -> list:
                      decode_attention(q, k, v, on_card), want, dtype)
                 n_cases += 2
 
-    # The model-layout ops at phase 7's shapes: (B, S, heads, hd) tensors,
-    # which the ops hand the kernels as transposed (strided) views.
-    def plain_flash_op(q, k, v, *, causal=True, window=None):
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        return flash_attention_plain(qt, kt, vt, causal=causal, window=window).transpose(1, 2)
-
-    def plain_decode_op(q, k_cache, v_cache, length):
-        return decode_attention_plain(q[:, 0], k_cache.transpose(1, 2), v_cache.transpose(1, 2), length)[:, None]
-
-    H, Kv, hd = 16, 8, 128
+    # The model-layout ops at phases 7 and 9's shapes: (B, S, heads, hd)
+    # tensors, which the ops hand the kernels as transposed (strided) views.
+    hd = 128
     for dtype in (f32, bf16):
-        for B, S in FLASH_OP_CASES:
+        for B, S, H, Kv in FLASH_OP_CASES:
             q, k, v = randn(B, S, H, hd, dtype=dtype), randn(B, S, Kv, hd, dtype=dtype), randn(B, S, Kv, hd, dtype=dtype)
-            hold("flash_attention", f"flash op B={B} S={S} {dtype}", flash_attention_op(q, k, v),
+            hold("flash_attention", f"flash op B={B} S={S} H={H} Kv={Kv} {dtype}", flash_attention_op(q, k, v),
                  plain_flash_op(q, k, v), dtype)
             n_cases += 1
-        for B, S, lengths in DECODE_OP_CASES:
+        for B, S, H, Kv, lengths in DECODE_OP_CASES:
             q, k, v = randn(B, 1, H, hd, dtype=dtype), randn(B, S, Kv, hd, dtype=dtype), randn(B, S, Kv, hd, dtype=dtype)
             for length in lengths:
-                hold("decode_attention", f"decode op B={B} cache={S} length={length} {dtype}",
+                hold("decode_attention", f"decode op B={B} cache={S} H={H} Kv={Kv} length={length} {dtype}",
                      decode_attention_op(q, k, v, length), plain_decode_op(q, k, v, length), dtype)
                 n_cases += 1
-    print(f"# attention kernels == plain versions within tolerance in {n_cases} cases; "
+    for E, C, D, Fd in GG_CASES:
+        for dtype in (f32, bf16):
+            x, w = randn(E, C, D, dtype=dtype), randn(E, D, Fd, dtype=dtype, scale=0.05)
+            hold("grouped_gemm", f"grouped_gemm ({E}, {C}, {D}) @ ({E}, {D}, {Fd}) {dtype}",
+                 grouped_gemm(x, w), grouped_gemm_plain(x, w), dtype)
+            n_cases += 1
+    print(f"# LM kernels == plain versions within tolerance in {n_cases} cases; "
           f"max abs error {json.dumps(max_abs)}")
 
-    # Times at phase 7's shapes, through the ops on model-layout tensors.
-    B, S = 4, 2048
-    q, k, v = randn(B, S, H, hd), randn(B, S, Kv, hd), randn(B, S, Kv, hd)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    flash_ms = time_ms(lambda: flash_attention_op(q, k, v), 20)
-    flash_plain_ms = time_ms(lambda: plain_flash_op(q, k, v), 5)
-    flash_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    pairs = S * (S + 1) // 2
-    flash_bound = attention_bound_ms(q.numel() * 2, 2 * k.numel() * 2, 4 * B * H * hd * pairs, bf16)
-    print(f"# flash_attention B={B} S={S} causal bf16: kernel {flash_ms!r} ms, plain {flash_plain_ms!r} ms, "
-          f"sdpa {flash_lib_ms!r} ms, bound {flash_bound[0]!r} ms by {flash_bound[1]}")
+    # Times at the main paths' shapes, through the ops on model-layout tensors.
+    timing = {name: {} for name in LM_KERNELS}
+    for label, H, Kv in (("qwen3-0.6b", 16, 8), ("olmoe-1b-7b", 16, 16)):
+        B, S = 4, 2048
+        q, k, v = randn(B, S, H, hd), randn(B, S, Kv, hd), randn(B, S, Kv, hd)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kernel = time_ms(lambda: flash_attention_op(q, k, v), 20)
+        plain = time_ms(lambda: plain_flash_op(q, k, v), 5)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        pairs = S * (S + 1) // 2
+        bound = roofline_ms(2 * (2 * q.numel() + 2 * k.numel()), 4 * B * H * hd * pairs, bf16)
+        timing["flash_attention"][label] = (kernel, plain, lib, bound)
+        print(f"# flash_attention {label} B={B} S={S} H={H} Kv={Kv} causal bf16: kernel {kernel!r} ms, "
+              f"plain {plain!r} ms, sdpa {lib!r} ms, bound {bound[0]!r} ms by {bound[1]}")
 
-    def time_decode(B, S, L, reps):
+    def time_decode(B, S, L, H, Kv, reps):
         """(kernel, plain, sdpa ms, bound) of one decode call at length L
         over a model-layout cache of S rows."""
         q, k, v = randn(B, 1, H, hd), randn(B, S, Kv, hd), randn(B, S, Kv, hd)
@@ -520,33 +621,70 @@ def lm_phases(attention_build, dev) -> list:
         plain = time_ms(lambda: plain_decode_op(q, k, v, L), reps)
         qt, kl, vl = q.transpose(1, 2), k[:, :L].transpose(1, 2), v[:, :L].transpose(1, 2)
         lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kl, vl, enable_gqa=True), reps)
-        bound = attention_bound_ms(q.numel() * 2, 2 * B * Kv * L * hd * 2, 4 * B * H * hd * L, bf16)
-        print(f"# decode_attention B={B} cache={S} length={L} bf16: kernel {kernel!r} ms, plain {plain!r} ms, "
-              f"sdpa {lib!r} ms, bound {bound[0]!r} ms by {bound[1]}")
+        bound = roofline_ms(2 * (2 * q.numel() + 2 * B * Kv * L * hd), 4 * B * H * hd * L, bf16)
+        print(f"# decode_attention B={B} cache={S} H={H} Kv={Kv} length={L} bf16: kernel {kernel!r} ms, "
+              f"plain {plain!r} ms, sdpa {lib!r} ms, bound {bound[0]!r} ms by {bound[1]}")
         return kernel, plain, lib, bound
 
-    # The 64 decode steps of phase 7 run lengths 2049..2112; 2080 is their middle.
-    decode_ms, decode_plain_ms, decode_lib_ms, decode_bound = time_decode(4, 2112, 2080, 50)
+    # The 64 decode steps of phases 7 and 9 run lengths 2049..2112; 2080 is their middle.
+    timing["decode_attention"]["qwen3-0.6b"] = time_decode(4, 2112, 2080, 16, 8, 50)
+    timing["decode_attention"]["olmoe-1b-7b"] = time_decode(4, 2112, 2080, 16, 16, 50)
     print("# extra shape, not on the main path:")
-    time_decode(8, 4096, 2048, 50)
-    phase_t0 = phase_done(6, phase_t0)
+    time_decode(8, 4096, 2048, 16, 8, 50)
 
-    # -- 7. main path: qwen3-0.6b at full width and depth -----------------------------
-    model = build_model("qwen3-0.6b", device="cuda", seed=0)
+    for label, (E, C, D, Fd) in GG_MAIN.items():
+        x, w = randn(E, C, D), randn(E, D, Fd, scale=0.05)
+        reps = 20 if C > 8 else 50
+        kernel = time_ms(lambda: grouped_gemm(x, w), reps)
+        plain = time_ms(lambda: grouped_gemm_plain(x, w), 5)
+        lib = time_ms(lambda: torch.bmm(x, w), reps)
+        bound = roofline_ms(2 * (E * C * D + E * D * Fd + E * C * Fd), 2 * E * C * D * Fd, bf16)
+        timing["grouped_gemm"][label] = (kernel, plain, lib, bound)
+        print(f"# grouped_gemm {label} ({E}, {C}, {D}) @ ({E}, {D}, {Fd}) bf16: kernel {kernel!r} ms, "
+              f"plain {plain!r} ms, torch.bmm {lib!r} ms, bound {bound[0]!r} ms by {bound[1]}")
+    return timing, max_abs
+
+
+def serving_main_path(arch: str, shape: dict, dev, timing: dict) -> dict:
+    """Phase 7 or 9: ``arch`` at full width and depth with seeded bf16
+    weights — prefill of 4 × 2048, ``extend_cache`` to 2112, 64 greedy decode
+    steps, ``forward``, and ``ServingEngine`` serving ``shape``'s requests —
+    with each call's kernel launches checked.  The counters are set to 0
+    after the warm-up; what they read after the engine run is the main
+    path's ``launches``.  A check of ``forward`` against prefill(S - 1) + one
+    decode step runs between, its launches not counted.  Returns the model,
+    its prompts, the fed tokens, the prefill and first 16 decode steps'
+    logits, and the launches."""
+    import dataclasses
+
+    from repro_torch.models import build as build_model, extend_cache
+    from repro_torch.serve import Request, ServingEngine
+
+    phase_t0 = time.perf_counter()
+    model = build_model(arch, device="cuda", seed=0)
     cfg = model.cfg
-    n_layers = cfg.n_layers
-    rng = np.random.default_rng(7)
+    L = cfg.n_layers
+    gg = 3 if cfg.n_experts else 0  # grouped-GEMM launches per layer: wi, wu, wd
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"# {arch}: {n_params} parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    rng = np.random.default_rng(shape["seed"])
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, size=(4, 2048)), device=dev)
-    model.prefill({"tokens": prompts[:1, :128]})  # warm-up (cuBLAS handles), not timed
+    model.prefill({"tokens": prompts[:1, :128]})  # warm-up (cuBLAS handles), not timed or counted
     torch.cuda.synchronize()
-    flash_attention.launches = 0
-    decode_attention.launches = 0
+    set_launch_counts({name: 0 for name in LM_KERNELS})
+
+    def launched(flash, decode, calls):
+        """The counts are those of ``flash`` flash calls, ``decode`` decode
+        calls and ``calls`` MoE calls so far."""
+        return launch_counts() == {"flash_attention": flash * L, "decode_attention": decode * L,
+                                   "grouped_gemm": calls * gg * L}
 
     t0 = time.perf_counter()
     last, cache = model.prefill({"tokens": prompts})
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    check(flash_attention.launches == n_layers, f"prefill launched flash {flash_attention.launches} times")
+    check(launched(1, 0, 1), f"prefill's launches {launch_counts()}: not flash once and grouped_gemm "
+          f"{gg} times per layer")
     check(bool(torch.isfinite(last).all()), "prefill logits are not finite")
     cache = extend_cache(model, cache, 2112)
     tok = last[:, -1].argmax(-1, keepdim=True)
@@ -560,82 +698,219 @@ def lm_phases(attention_build, dev) -> list:
             step_logits.append(logits)
     torch.cuda.synchronize()
     decode_step_ms = (time.perf_counter() - t0) * 1e3 / 64
-    check(decode_attention.launches == 64 * n_layers,
-          f"64 decode steps launched decode_attention {decode_attention.launches} times")
+    check(launched(1, 64, 65), f"launches after 64 decode steps {launch_counts()}: not decode_attention once "
+          f"and grouped_gemm {gg} times per layer and step")
     check(bool(torch.isfinite(logits).all()), "decode logits are not finite")
+    del cache
 
-    before = flash_attention.launches
-    full, _, _ = model.forward({"tokens": prompts})
-    check(flash_attention.launches - before == n_layers, "forward did not launch flash once per layer")
+    full, aux, _ = model.forward({"tokens": prompts})
+    check(launched(2, 64, 66), f"forward's launches {launch_counts()}")
+    check(bool(torch.isfinite(full).all()), "forward logits are not finite")
+    check(bool(torch.isfinite(aux)) and (float(aux) > 0.0) == (cfg.n_experts > 0), f"aux loss {float(aux)!r}")
+    full_last = full[:, -1].clone()
+    del full
+
+    # Not the main path: its counts are kept and restored.  A forward sees
+    # what prefill(S - 1) + one decode step sees at its last position only
+    # if no slot of that position was dropped, so an MoE model is checked at
+    # its dropless capacity factor E / K (the capacity is shared by the
+    # whole batch), with a forward of its own.
+    counts = launch_counts()
+    if cfg.n_experts:
+        model.cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        full, _, _ = model.forward({"tokens": prompts})
+        full_last = full[:, -1].clone()
+        del full
     _, short_cache = model.prefill({"tokens": prompts[:, :-1]})
     dec, _ = model.decode_step(extend_cache(model, short_cache, 2048), prompts[:, -1:], 2047)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(full).all()), "forward logits are not finite")
-    fwd_err = rel_err(dec[:, 0], full[:, -1])
+    model.cfg = cfg
+    del short_cache
+    set_launch_counts(counts)
+    fwd_err = rel_err(dec[:, 0], full_last)
     check(fwd_err <= 3e-2, f"forward against prefill + decode_step: relative error {fwd_err!r}")
-    del full
-    print(f"# qwen3-0.6b prefill 4 x 2048: {prefill_ms!r} ms; decode step (B=4, cache 2112): "
-          f"{decode_step_ms!r} ms; forward vs prefill+decode relative error {fwd_err!r}")
+    print(f"# {arch} prefill 4 x 2048: {prefill_ms!r} ms; decode step (B=4, cache 2112): {decode_step_ms!r} ms "
+          f"(mean of 64); aux loss {float(aux)!r}; {'dropless ' if cfg.n_experts else ''}forward vs "
+          f"prefill+decode relative error {fwd_err!r}")
 
-    rng = np.random.default_rng(8)
-    requests = [Request(i, rng.integers(0, cfg.vocab, size=int(rng.integers(16, 129))).astype(np.int32),
-                        max_new_tokens=32) for i in range(16)]
-    engine = ServingEngine(model, batch_slots=8, max_seq=512)
-    before = decode_attention.launches
+    rng = np.random.default_rng(shape["seed"] + 1)
+    lo, hi = shape["prompt_len"]
+    n, new = shape["requests"], shape["new_tokens"]
+    requests = [Request(i, rng.integers(0, cfg.vocab, size=int(rng.integers(lo, hi))).astype(np.int32),
+                        max_new_tokens=new) for i in range(n)]
+    engine = ServingEngine(model, batch_slots=shape["slots"], max_seq=shape["max_seq"])
     t0 = time.perf_counter()
     engine.run(requests)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    check(all(r.done and len(r.output) == 32 for r in requests), "a request did not finish with 32 tokens")
+    check(all(r.done and len(r.output) == new for r in requests), f"a request did not finish with {new} tokens")
     n_decode_calls = sum(len(r.prompt) for r in requests) + engine.steps
-    check(decode_attention.launches - before == n_layers * n_decode_calls,
-          "the engine did not launch decode_attention once per layer and step")
-    tokens_per_s = 16 * 32 / serve_s
-    print(f"# ServingEngine 8 slots, 16 requests x 32 tokens: {serve_s!r} s, {tokens_per_s!r} generated "
-          f"tokens/s, {n_decode_calls} decode steps ({engine.steps} generating)")
-    main_launches = {"flash_attention": flash_attention.launches,
-                     "decode_attention": decode_attention.launches}
-    print(f"# main path launches: {json.dumps(main_launches)}")
-    phase_t0 = phase_done(7, phase_t0)
+    check(launched(2, 64 + n_decode_calls, 66 + n_decode_calls),
+          f"launches after the engine {launch_counts()}: not decode_attention once and grouped_gemm {gg} "
+          "times per layer and step")
+    print(f"# {arch} ServingEngine {shape['slots']} slots, {n} requests x {new} tokens: {serve_s!r} s, "
+          f"{n * new / serve_s!r} generated tokens/s, {n_decode_calls} decode steps ({engine.steps} generating)")
+    launches = launch_counts()
 
-    # -- 8. kernel path against plain path at full width ------------------------------
-    # The model calls its attention ops through repro_torch.models.attention;
-    # binding them there to the plain versions gives the plain path.
-    kernel_ops = model_attention.flash_attention_op, model_attention.decode_attention_op
-    model_attention.flash_attention_op, model_attention.decode_attention_op = plain_flash_op, plain_decode_op
-    plain_last, plain_cache = model.prefill({"tokens": prompts})
-    err = rel_err(plain_last, last)
-    check(err <= 3e-2, f"prefill logits, kernel against plain path: relative error {err!r}")
-    errors = [err]
-    plain_cache = extend_cache(model, plain_cache, 2112)
-    agree = 0
-    for t in range(16):
-        logits, plain_cache = model.decode_step(plain_cache, fed[t], 2048 + t)
-        err = rel_err(step_logits[t], logits)
-        check(err <= 3e-2, f"decode step {t}, kernel against plain path: relative error {err!r}")
-        errors.append(err)
-        agree += int((step_logits[t][:, -1].argmax(-1) == logits[:, -1].argmax(-1)).sum())
-    torch.cuda.synchronize()
-    check(flash_attention.launches == main_launches["flash_attention"]
-          and decode_attention.launches == main_launches["decode_attention"],
-          "the plain path launched a kernel")
-    model_attention.flash_attention_op, model_attention.decode_attention_op = kernel_ops
-    print(f"# kernel path == plain path: max relative error {max(errors)!r} over prefill and 16 "
-          f"teacher-forced steps; greedy tokens agree {agree}/{16 * 4}")
-    phase_done(8, phase_t0)
+    # Each kernel's share of the prefill and of a decode step, at phase 6's
+    # times of one call at this path's shapes.
+    fl, de, gt = (timing["flash_attention"][arch][0], timing["decode_attention"][arch][0], timing["grouped_gemm"])
+    gg_prefill = L * (2 * gt["prefill wi/wu"][0] + gt["prefill wd"][0]) if gg else 0.0
+    gg_decode = L * (2 * gt["decode wi/wu"][0] + gt["decode wd"][0]) if gg else 0.0
+    print(f"# {arch} prefill {prefill_ms!r} ms; kernels at phase 6's times: flash_attention {L * fl!r} ms "
+          f"({100 * L * fl / prefill_ms:.1f} %), grouped_gemm {gg_prefill!r} ms ({100 * gg_prefill / prefill_ms:.1f} %)")
+    print(f"# {arch} decode step {decode_step_ms!r} ms; kernels at phase 6's times: decode_attention {L * de!r} ms "
+          f"({100 * L * de / decode_step_ms:.1f} %), grouped_gemm {gg_decode!r} ms "
+          f"({100 * gg_decode / decode_step_ms:.1f} %)")
+    phase_done(shape["phase"], phase_t0)
+    return {"model": model, "prompts": prompts, "fed": fed[:16], "last": last, "step_logits": step_logits,
+            "launches": launches}
 
-    def entry(name, replaces, ms, plain_ms, bound, library_ms):
-        return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
-                "replaces": replaces, "launches": main_launches[name], "max_abs_err": max_abs[name],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-                "library_ms": library_ms}
 
-    return [
-        entry("flash_attention", "src/repro/kernels/flash/flash_attention.py:26",
-              flash_ms, flash_plain_ms, flash_bound, flash_lib_ms),
-        entry("decode_attention", "src/repro/kernels/decode_attn/decode_attention.py:23",
-              decode_ms, decode_plain_ms, decode_bound, decode_lib_ms),
-    ]
+class Routes:
+    """Binds ``repro_torch.models.moe.route`` to a wrapper that keeps the
+    expert indices of every MoE call, in call order; ``with`` restores it.
+    Given such a record (``replay``), each call takes the recorded experts
+    instead of its own top-k, with its own router probabilities gathered at
+    them as gates (renormalized as ``route`` does)."""
+
+    def __init__(self, replay=None):
+        import repro_torch.models.moe as moe
+
+        self.moe, self.route, self.replay, self.calls = moe, moe.route, replay, []
+
+    def __enter__(self):
+        def wrapped(cfg, router, xf):
+            probs, gates, experts = self.route(cfg, router, xf)
+            if self.replay is not None:
+                experts = self.replay[len(self.calls)]
+                gates = probs.gather(-1, experts)
+                gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+            self.calls.append(experts)
+            return probs, gates, experts
+
+        self.moe.route = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def routed_apart(a: list, b: list, n_calls: int, rows: list) -> list:
+    """Per forward or decode step (``n_calls`` MoE calls each, ``rows[i]``
+    token rows in the i-th), a bool per token row: routed to another expert
+    set at some layer."""
+    check(len(a) == len(b) == n_calls * len(rows), "the two paths made different MoE calls")
+    out = []
+    for i in range(len(rows)):
+        pairs = zip(a[i * n_calls:(i + 1) * n_calls], b[i * n_calls:(i + 1) * n_calls])
+        out.append(torch.stack([(x.sort(-1).values != y.sort(-1).values).any(-1) for x, y in pairs]).any(0))
+    return out
+
+
+def kernel_path_against_plain(main: dict, phase: int, dev) -> None:
+    """Phase 8 or 10: the model's kernel path against its plain path (the
+    model's attention ops and grouped GEMM bound to their plain versions,
+    where ``repro_torch.models.attention`` and ``repro_torch.models.moe``
+    call them) at full width: prefill logits and 16 teacher-forced decode
+    steps, in bf16 within 3e-2.  An MoE model is also run in f32 (prefill of
+    4 × 256, 8 steps), within 1e-4."""
+    import dataclasses
+
+    from repro_torch.models import build_from_config
+
+    phase_t0 = time.perf_counter()
+    model = main.pop("model")
+    arch = model.cfg.arch
+    kernel = compare(f"{arch} {model.cfg.dtype}", model, main["prompts"], main["fed"], TOL[torch.bfloat16],
+                     by_sequence=False)
+    check(torch.equal(kernel[0], main["last"]) and all(torch.equal(a, b) for a, b in zip(kernel[1], main["step_logits"])),
+          "the kernel path is not deterministic: a rerun differs from the main path's")
+    if model.cfg.n_experts:
+        cfg = model.cfg
+        del model, kernel
+        torch.cuda.empty_cache()
+        model32 = build_from_config(dataclasses.replace(cfg, dtype="float32"), device="cuda", seed=0)
+        rng = np.random.default_rng(11)
+        prompts32 = torch.as_tensor(rng.integers(0, cfg.vocab, size=(4, 256)), device=dev)
+        fed32 = [torch.as_tensor(rng.integers(0, cfg.vocab, size=(4, 1)), device=dev) for _ in range(8)]
+        compare(f"{arch} float32", model32, prompts32, fed32, TOL[torch.float32], by_sequence=True)
+    phase_done(phase, phase_t0)
+
+
+def compare(label: str, model, prompts, fed, tol: float, by_sequence: bool):
+    """Prefill logits and teacher-forced decode logits of the kernel path
+    against the plain path's, all held within ``tol``; returns the kernel
+    path's ``(prefill logits, step logits, expert indices)``.
+
+    Two plain runs for an MoE model.  Where router logits differ in their
+    last bit, the plain path can route a token to other experts than the
+    kernel path, and that row then differs by far more than rounding; the
+    first plain run routes on its own and counts those rows (``by_sequence``
+    holds only the sequences routed alike throughout, else every row).  The
+    second takes the kernel path's experts at every MoE call, so that every
+    row of it measures the kernels' numerics alone."""
+    import repro_torch.models.attention as model_attention
+    import repro_torch.models.moe as model_moe
+    from repro_torch.kernels.moe_gemm import grouped_gemm_plain
+    from repro_torch.models import extend_cache
+
+    kernel_ops = model_attention.flash_attention_op, model_attention.decode_attention_op, model_moe.grouped_gemm_op
+    plain_ops = plain_flash_op, plain_decode_op, grouped_gemm_plain
+
+    def run(ops, replay=None):
+        (model_attention.flash_attention_op, model_attention.decode_attention_op, model_moe.grouped_gemm_op) = ops
+        with Routes(replay) as routes:
+            last, cache = model.prefill({"tokens": prompts})
+            cache = extend_cache(model, cache, prompts.shape[1] + 64)  # the main path's cache
+            steps = []
+            for t, tok in enumerate(fed):
+                logits, cache = model.decode_step(cache, tok, prompts.shape[1] + t)
+                steps.append(logits)
+        (model_attention.flash_attention_op, model_attention.decode_attention_op, model_moe.grouped_gemm_op) = kernel_ops
+        torch.cuda.synchronize()
+        return [last] + steps, routes.calls
+
+    counts = launch_counts()
+    kernel, kernel_routes = run(kernel_ops)
+    counts_kernel = launch_counts()
+    plain, plain_routes = run(plain_ops)
+    check(launch_counts() == counts_kernel, "the plain path launched a kernel")
+    B, S = prompts.shape
+    n_calls = model.cfg.n_layers if model.cfg.n_experts else 0
+    rows_per_call = [B * S] + [B] * len(fed)
+    apart = (routed_apart(kernel_routes, plain_routes, n_calls, rows_per_call) if n_calls
+             else [torch.zeros(n, dtype=torch.bool, device=prompts.device) for n in rows_per_call])
+    # A sequence with a token routed apart has a different cache from then on.
+    seq_apart = apart[0].view(B, S).any(-1)
+    errors, agree = [], 0
+    for t, (k_logits, p_logits) in enumerate(zip(kernel, plain)):
+        if t > 0:
+            seq_apart = seq_apart | apart[t]
+            agree += int((k_logits[:, -1].argmax(-1) == p_logits[:, -1].argmax(-1)).sum())
+        rows = ~seq_apart if by_sequence else torch.ones_like(seq_apart)
+        check(bool(rows.any()), f"{label}: every sequence was routed apart")
+        errors.append(rel_err(k_logits[rows], p_logits[rows]))
+        check(errors[-1] <= tol, f"{label} {'prefill' if t == 0 else f'step {t}'}, kernel against plain path: "
+              f"relative error {errors[-1]!r}")
+    n_steps = len(fed)
+    print(f"# {label} kernel path == plain path: max relative error {max(errors)!r} over prefill {B} x {S} and "
+          f"{n_steps} teacher-forced steps{' (sequences routed alike)' if by_sequence else ''}; greedy tokens "
+          f"agree {agree}/{B * n_steps}")
+    if n_calls:
+        print(f"# {label} token rows routed apart at some layer: prefill {int(apart[0].sum())}/{B * S}, decode "
+              f"{int(sum(a.sum() for a in apart[1:]))}/{B * n_steps}, sequences {int(seq_apart.sum())}/{B}")
+        replayed, replayed_routes = run(plain_ops, replay=kernel_routes)
+        check(launch_counts() == counts_kernel, "the plain path launched a kernel")
+        check(all(torch.equal(a, b) for a, b in zip(replayed_routes, kernel_routes)), "the replay changed a route")
+        errors = [rel_err(k, p) for k, p in zip(kernel, replayed)]
+        check(max(errors) <= tol, f"{label}, kernel against plain path on the kernel path's routes: "
+              f"relative errors {errors!r}")
+        print(f"# {label} kernel path == plain path on the kernel path's routes: max relative error "
+              f"{max(errors)!r} over every row of the prefill and the {n_steps} steps")
+    # Only the main path's launches are counted.
+    set_launch_counts(counts)
+    return kernel[0], kernel[1:], kernel_routes
 
 
 if __name__ == "__main__":

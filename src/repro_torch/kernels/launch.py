@@ -1,4 +1,4 @@
-"""What the attention kernels' wrappers share: the dtypes the CUDA sources
+"""What the LM kernels' wrappers share: the dtypes the CUDA sources
 are instantiated for, the input checks, and the launch on PyTorch's current
 stream with the returned ``cudaError_t`` turned into an exception."""
 
@@ -12,7 +12,7 @@ import torch
 #: dtype -> the ``dtype`` code of the kernels' argument structs.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Largest head dim the kernels pad to.
+#: Largest head dim the attention kernels pad to.
 MAX_HEAD_DIM = 256
 
 

@@ -1,27 +1,27 @@
 """Residual blocks: one spec + forward + decode step per block kind.
 
 Torch counterpart of ``repro/models/blocks.py`` for the attention kinds:
-"attn" (global) and "local" (sliding window), each with a dense SwiGLU FFN.
-MoE FFNs and the recurrent kinds are later slices of the port and raise.
+"attn" (global) and "local" (sliding window), each with a dense SwiGLU FFN
+or, when the config has experts, an MoE FFN.  The recurrent kinds are later
+slices of the port and raise.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from . import attention as attn
+from . import moe as moe_mod
 from .common import ParamSpec, rms_norm
 
 ATTENTION_KINDS = ("attn", "local")
 
-#: Block kinds and FFNs of later slices, with the ROADMAP.md §1 item that
-#: ports them.
+#: Block kinds of later slices, with the ROADMAP.md §1 item that ports them.
 _LATER_SLICES = {
-    "moe": "MoE serving (olmoe-1b-7b, grouped_gemm)",
     "rglru": "recurrentgemma-9b (rglru_scan)",
     "mlstm": "xlstm-350m (mlstm_chunk)",
     "slstm": "xlstm-350m (mlstm_chunk)",
@@ -36,11 +36,6 @@ def check_supported(cfg: ModelConfig, kind: str) -> None:
         )
     if kind not in ATTENTION_KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.arch}: MoE FFNs are not ported yet; they come with the slice "
-            f"{_LATER_SLICES['moe']} of ROADMAP.md §1"
-        )
 
 
 def ffn_spec(cfg: ModelConfig) -> ParamSpec:
@@ -64,7 +59,10 @@ def block_spec(cfg: ModelConfig, kind: str) -> ParamSpec:
     D = cfg.d_model
     spec: ParamSpec = {"ln1": ((D,), ("embed",), "ones")}
     spec.update(attn.attn_spec(cfg))
-    if cfg.d_ff > 0:
+    if cfg.n_experts > 0:
+        spec["ln2"] = ((D,), ("embed",), "ones")
+        spec.update(moe_mod.moe_spec(cfg))
+    elif cfg.d_ff > 0:
         spec["ln2"] = ((D,), ("embed",), "ones")
         spec.update(ffn_spec(cfg))
     return spec
@@ -74,11 +72,22 @@ def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
     return cfg.window if kind == "local" else None
 
 
-def _mix_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, mixed: torch.Tensor) -> torch.Tensor:
+def _mix_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+             mixed: torch.Tensor) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Residual-add the mixer's output, then the (Mo)FFN if there is one.
+    Returns (x, the MoE's router probabilities and slots per expert, or None
+    for blocks without experts)."""
+    stats = None
     x = x + mixed
     if "ln2" in p:
-        x = x + ffn_forward(p, rms_norm(x, p["ln2"]))
-    return x
+        h = rms_norm(x, p["ln2"])
+        if "router" in p:
+            f, probs, counts = moe_mod.moe_forward(cfg, p, h)
+            stats = (probs, counts)
+        else:
+            f = ffn_forward(p, h)
+        x = x + f
+    return x, stats
 
 
 def block_forward(
@@ -89,13 +98,15 @@ def block_forward(
     positions: torch.Tensor,
     *,
     causal: bool = True,
-) -> Tuple[torch.Tensor, attn.Cache]:
-    """Full-sequence pass.  Returns (x, decode cache)."""
+) -> Tuple[torch.Tensor, attn.Cache, Union[torch.Tensor, float]]:
+    """Full-sequence pass.  Returns (x, decode cache, aux loss)."""
     mixed, cache = attn.attention_forward(
         cfg, p, rms_norm(x, p["ln1"]), positions,
         window=_window(cfg, kind), causal=causal,
     )
-    return _mix_ffn(p, x, mixed), cache
+    x, stats = _mix_ffn(cfg, p, x, mixed)
+    # The MoE's load-balancing loss (an f32 scalar), else 0.0 (no device work).
+    return x, cache, moe_mod.moe_aux(cfg, *stats) if stats else 0.0
 
 
 def block_init_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
@@ -114,4 +125,5 @@ def block_decode(
     mixed, cache = attn.attention_decode(
         cfg, p, rms_norm(x, p["ln1"]), cache, pos, window=_window(cfg, kind),
     )
-    return _mix_ffn(p, x, mixed), cache
+    x, _ = _mix_ffn(cfg, p, x, mixed)
+    return x, cache

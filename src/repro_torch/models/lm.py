@@ -8,9 +8,9 @@ scanned groups and unscanned tail are one list here, see
 keeps f32 and casts at every use, which gives the same numbers); norm
 weights stay in the parameter dtype and are read in f32.
 
-Not ported in this slice, and raising: the vision prefix (phi-3-vision),
-the encoder-decoder (whisper), MoE and recurrent blocks, ``loss_fn``
-(training, with remat).
+Not ported yet, and raising: the vision prefix (phi-3-vision), the
+encoder-decoder (whisper), recurrent blocks, ``loss_fn`` (training, with
+remat).
 """
 
 from __future__ import annotations
@@ -109,21 +109,23 @@ class Model(nn.Module):
     def forward(
         self, batch: Dict[str, torch.Tensor], collect_cache: bool = False
     ) -> Tuple[torch.Tensor, torch.Tensor, Optional[List[Cache]]]:
-        """Returns (logits (B,S,V), aux loss, per-layer caches or None)."""
-        hidden, caches = self._hidden(batch["tokens"], collect_cache)
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        """Returns (logits (B,S,V), aux loss summed over layers, per-layer
+        caches or None)."""
+        hidden, aux, caches = self._hidden(batch["tokens"], collect_cache)
         return self.unembed(hidden), aux, caches
 
     def _hidden(self, tokens: torch.Tensor, collect_cache: bool):
         B, S = tokens.shape
         x = self.embed(tokens)
         positions = torch.arange(S, device=self.device).expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         caches = []
         for layer in self.layers:
-            x, cache = blocks.block_forward(self.cfg, layer.kind, layer.params(), x, positions)
+            x, cache, a = blocks.block_forward(self.cfg, layer.kind, layer.params(), x, positions)
+            aux = aux + a
             if collect_cache:
                 caches.append(cache)
-        return rms_norm(x, self.final_norm), caches if collect_cache else None
+        return rms_norm(x, self.final_norm), aux, caches if collect_cache else None
 
     def loss_fn(self, batch):
         raise NotImplementedError("training (loss_fn, remat) is a later slice of the port")
@@ -133,7 +135,7 @@ class Model(nn.Module):
     def prefill(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, List[Cache]]:
         """Returns (last-position logits (B,1,V), per-layer decode caches);
         only the last position is unembedded."""
-        hidden, caches = self._hidden(batch["tokens"], collect_cache=True)
+        hidden, _, caches = self._hidden(batch["tokens"], collect_cache=True)
         return self.unembed(hidden[:, -1:]), caches
 
     # -- decode ----------------------------------------------------------------------

@@ -114,7 +114,7 @@ CUDA_SOURCES = sorted(p.stem for p in (REPO / "src" / "repro_torch" / "csrc").gl
 
 
 def test_every_cuda_source_is_a_kernel_of_the_port():
-    assert CUDA_SOURCES == ["decode_attention", "flash_attention", "fused_score"]
+    assert CUDA_SOURCES == ["decode_attention", "flash_attention", "fused_score", "grouped_gemm"]
 
 
 def test_build_command_targets_hopper_without_fma(monkeypatch):
@@ -130,6 +130,17 @@ def test_build_command_targets_hopper_without_fma(monkeypatch):
         assert out.name.startswith(f"{name}-") and out.suffix == ".so"
 
 
+def c_struct_fields(source: str, struct: str):
+    """Field names of ``struct`` in ``csrc/<source>.cu``, in order."""
+    text = (REPO / "src" / "repro_torch" / "csrc" / f"{source}.cu").read_text()
+    body = text[text.index("struct " + struct):]
+    declared = []
+    for line in body[:body.index("};")].splitlines()[1:]:
+        if ";" in line:  # "long long q_sb, q_sh, q_ss;  // ..." declares three
+            declared += [part.split()[-1] for part in line.split(";")[0].replace("*", " ").split(",")]
+    return declared
+
+
 @pytest.mark.parametrize("module,struct", [
     ("repro_torch.kernels.flash.flash_attention", "_FlashArgs"),
     ("repro_torch.kernels.decode_attn.decode_attention", "_DecodeArgs"),
@@ -143,13 +154,16 @@ def test_attention_argument_structs_match_their_c_layout(module, struct):
     n8 = len(mod._PTR_FIELDS) + len(mod._STRIDE_FIELDS)
     n4 = 1 + len(mod._INT_FIELDS)
     assert ctypes.sizeof(cls) == 8 * n8 + 4 * n4 + (4 * n4) % 8
-    source = (REPO / "src" / "repro_torch" / "csrc" / f"{mod.__name__.split('.')[-1]}.cu").read_text()
-    body = source[source.index("struct " + struct[1:]):]
-    declared = []
-    for line in body[:body.index("};")].splitlines()[1:]:
-        if ";" in line:  # "long long q_sb, q_sh, q_ss;  // ..." declares three
-            declared += [part.split()[-1] for part in line.split(";")[0].replace("*", " ").split(",")]
-    assert declared == [n for n, _ in cls._fields_]
+    assert c_struct_fields(mod.__name__.split(".")[-1], struct[1:]) == [n for n, _ in cls._fields_]
+
+
+def test_grouped_gemm_argument_struct_matches_its_c_layout():
+    """Three pointers, then five ints, padded to 8 — the fields of ``struct
+    GroupedGemmArgs`` in the same order."""
+    mod = importlib.import_module("repro_torch.kernels.moe_gemm.grouped_gemm")
+    cls = mod._GroupedGemmArgs
+    assert ctypes.sizeof(cls) == 8 * len(mod._PTR_FIELDS) + 4 * len(mod._INT_FIELDS) + 4
+    assert c_struct_fields("grouped_gemm", "GroupedGemmArgs") == [n for n, _ in cls._fields_]
 
 
 def test_kernel_arguments_pack_from_uploaded_arena():

@@ -2,7 +2,7 @@
 
 Same float32 smoke model (the reference's seeded parameters carried over
 with ``params_from_jax``), same requests: the generated token lists are
-equal.  Requests finish at different steps, so later ones are admitted
+equal, for dense attention models and for an MoE one.  Requests finish at different steps, so later ones are admitted
 while other slots are decoding — the admission pass then overwrites those
 slots' cache rows, a reference behaviour the port keeps.
 """
@@ -36,6 +36,9 @@ def requests(cls, vocab, specs, seed):
     ("qwen3-0.6b", 3, 32, [(5, 3), (3, 7), (8, 2), (4, 5), (6, 4)]),
     # Requests stopped by max_seq (pos reaches max_seq - 1 first).
     ("smollm-360m", 2, 12, [(6, 9), (2, 3), (7, 8)]),
+    # MoE FFNs: every decode step routes all slots, idle ones included
+    # (token 0), through the experts.
+    ("olmoe-1b-7b", 3, 32, [(5, 3), (3, 7), (8, 2), (4, 5), (6, 4)]),
 ])
 def test_engine_tokens_match_reference(arch, slots, max_seq, specs):
     cfg = dataclasses.replace(ref_configs.get_smoke(arch), dtype="float32")

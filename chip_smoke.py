@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port on one CUDA card: the placement search, LM
-serving on qwen3-0.6b and MoE serving on olmoe-1b-7b.
+serving on qwen3-0.6b, MoE serving on olmoe-1b-7b and hybrid (recurrent and
+local attention) serving on recurrentgemma-9b.
 
 Run from the repository root with no arguments::
 
@@ -23,19 +24,22 @@ Phases (any failure exits non-zero before the result line is printed):
 4. card against CPU: the same schedules with ``device="cpu"`` and
    ``device="cuda"`` give identical placements on the §6 suite (16 chains ×
    150 steps) and on the flagship case (64 chains × 200 steps);
-5. LM kernel build: ``flash_attention.cu``, ``decode_attention.cu`` and
-   ``grouped_gemm.cu`` (started in the background with phase 1, one nvcc
-   each), their build seconds and ptxas reports;
+5. LM kernel build: ``flash_attention.cu``, ``decode_attention.cu``,
+   ``grouped_gemm.cu`` and ``rglru_scan.cu`` (started in the background with
+   phase 1, one nvcc each), their build seconds and ptxas reports;
 6. LM kernels against their plain versions on the card (relative max error
    ≤ 1e-4 in f32, ≤ 3e-2 in bf16): flash on four shapes under causal,
    bidirectional and window-256 masks, decode at B=8 / cache 4096 over five
    lengths (host and device lengths) and at G=3 / hd 64; both through the
-   model-layout ops (strided views) at the shapes phases 7 and 9 give them;
-   the grouped GEMM at olmoe-1b-7b's prefill and decode shapes, the
-   reference sweep's shapes and ragged ones.  Times of kernel, plain
-   version and a PyTorch yardstick (``scaled_dot_product_attention``,
-   ``torch.bmm``; never on the path) at the main paths' shapes, with the
-   card's bound;
+   model-layout ops (strided views) at the shapes phases 7, 9 and 11 give
+   them (recurrentgemma-9b: hd 256, one KV head, window 2048, also over
+   4096 tokens); the grouped GEMM at olmoe-1b-7b's prefill and decode
+   shapes, the reference sweep's shapes and ragged ones; the RG-LRU scan at
+   recurrentgemma-9b's (4, 2048 and 2047, 4096) with zero and random h0,
+   the reference sweep's shapes, S = 1 and odd D, in f32 and bf16.  Times
+   of kernel, plain version and a PyTorch yardstick
+   (``scaled_dot_product_attention``, ``torch.bmm``; never on the path; the
+   scan has none) at the main paths' shapes, with the card's bound;
 7. main path: qwen3-0.6b at full width and depth with seeded bf16 weights —
    ``prefill`` of 4 × 2048 tokens, ``extend_cache`` to 2112, 64 greedy
    ``decode_step``s, ``forward``, and ``ServingEngine(batch_slots=8,
@@ -56,20 +60,35 @@ Phases (any failure exits non-zero before the result line is printed):
    4 × 256, 8 steps; the sequences routed alike, within 1e-4).  Token rows
    routed to another expert set at some layer are counted and printed, and
    the plain path is run again on the kernel path's experts, every row
-   within the same tolerance.
+   within the same tolerance;
+11. main path: recurrentgemma-9b (26 RG-LRU and 12 local-attention layers,
+   window 2048, one KV head of 256) at full width and depth, as phase 7,
+   with ``ServingEngine(batch_slots=8, max_seq=256)`` serving 8 requests of
+   16 new tokens; 26 scan and 12 flash launches per forward, 12 decode
+   launches and no scan per step (a step's recurrence is plain arithmetic);
+   the 64 decode steps wrap the local layers' 2048-row ring; ``forward``
+   against prefill + decode held on an f32 copy of the model within 1e-4
+   (``SERVED``: in bf16 the two paths round apart through 38 layers; that
+   error is printed);
+12. recurrentgemma-9b with the model's attention ops and scan bound to the
+   plain versions: prefill logits of the main path's 4 × 2048 prompts and
+   16 teacher-forced decode steps, held on an f32 copy of the model within
+   1e-4 of the kernel path; the bf16 model's error is printed (``SERVED``).
 
-Phases 7 and 9 share one path (``serving_main_path``), and 8 and 10 one
-comparison (``compare``).  The launch counters are set to 0 after each
-model's warm-up; the ``launches`` of the kernels line are those of the two
-main paths, without the forward-against-decode checks and the plain paths.
+Phases 7, 9 and 11 share one path (``serving_main_path``), and 8, 10 and
+12 one comparison (``compare``).  The launch counters are set to 0 after
+each model's warm-up; the ``launches`` of the kernels line are those of the
+three main paths, without the forward-against-decode checks and the plain
+paths.
 
 Each phase prints its seconds.  The second-to-last lines are the card's
-nvidia-smi line and a JSON object with the four kernels' numbers; the last
+nvidia-smi line and a JSON object with the five kernels' numbers; the last
 line is the device contract line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -90,7 +109,7 @@ PEAK_FP64_OPS_PER_S = 34e12 / 2
 #: (the same data sheet): the peaks for attention on bf16 and f32 inputs.
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-LM_KERNELS = ["flash_attention", "decode_attention", "grouped_gemm"]
+LM_KERNELS = ["flash_attention", "decode_attention", "grouped_gemm", "rglru_scan"]
 #: Relative max error of a kernel against its plain version: the
 #: reference's own ``tol_for`` (tests/test_kernels.py).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -101,14 +120,20 @@ FLASH_MASKS = [(True, None), (False, None), (True, 256)]
 #: (B, H, Kv, S, hd, lengths) of the decode checks.
 DECODE_CASES = [(8, 16, 8, 4096, 128, (1, 511, 512, 513, 4096)),
                 (4, 15, 5, 1024, 64, (1, 333, 1024))]
-#: The shapes phases 7 (qwen3-0.6b: H=16, Kv=8) and 9 (olmoe-1b-7b: H=Kv=16)
-#: give the model-layout ops, hd=128: flash (B, S, H, Kv) of prefill and of
-#: the prefill of S - 1 tokens; decode (B, cache, H, Kv, lengths) of the 64
-#: decode steps and of the engine (qwen3: prompts of up to 128 tokens plus
-#: 32 new ones; olmoe: up to 64 plus 16).
-FLASH_OP_CASES = [(4, 2048, 16, 8), (4, 2047, 16, 8), (4, 2048, 16, 16), (4, 2047, 16, 16)]
-DECODE_OP_CASES = [(4, 2112, 16, 8, (2049, 2080, 2112)), (8, 512, 16, 8, (1, 17, 100, 160)),
-                   (4, 2112, 16, 16, (2049, 2080, 2112)), (8, 256, 16, 16, (1, 17, 64, 80))]
+#: The shapes phases 7 (qwen3-0.6b: H=16, Kv=8, hd=128), 9 (olmoe-1b-7b:
+#: H=Kv=16, hd=128) and 11 (recurrentgemma-9b: H=16, Kv=1, hd=256, local
+#: layers with window 2048) give the model-layout ops: flash (B, S, H, Kv,
+#: hd, window) of prefill and of the prefill of S - 1 tokens, and for
+#: recurrentgemma one case past its window; decode (B, cache, H, Kv, hd,
+#: lengths) of the 64 decode steps (recurrentgemma: a 2048-row ring, full
+#: from position 2047 on) and of the engine (qwen3: prompts of up to 128
+#: tokens plus 32 new ones; olmoe and recurrentgemma: up to 64 plus 16).
+FLASH_OP_CASES = [(4, 2048, 16, 8, 128, None), (4, 2047, 16, 8, 128, None),
+                  (4, 2048, 16, 16, 128, None), (4, 2047, 16, 16, 128, None),
+                  (4, 2048, 16, 1, 256, 2048), (4, 2047, 16, 1, 256, 2048), (1, 4096, 16, 1, 256, 2048)]
+DECODE_OP_CASES = [(4, 2112, 16, 8, 128, (2049, 2080, 2112)), (8, 512, 16, 8, 128, (1, 17, 100, 160)),
+                   (4, 2112, 16, 16, 128, (2049, 2080, 2112)), (8, 256, 16, 16, 128, (1, 17, 64, 80)),
+                   (4, 2048, 16, 1, 256, (1, 1000, 2047, 2048)), (8, 256, 16, 1, 256, (1, 17, 64, 80))]
 #: (E, C, D, F) of the grouped-GEMM checks: olmoe-1b-7b's prefill (4 × 2048
 #: tokens, C = 1280) and decode (C = 8) shapes for wi/wu and for wd; the
 #: reference sweep's shapes (tests/test_kernels.py); ragged ones.
@@ -117,13 +142,33 @@ GG_MAIN = {"prefill wi/wu": (64, 1280, 2048, 1024), "prefill wd": (64, 1280, 102
 GG_CASES = (list(GG_MAIN.values())
             + [(e, c, d, f) for e in (1, 4, 8) for c in (128, 256) for d in (128, 256) for f in (128, 384)]
             + [(3, 24, 200, 72), (2, 7, 13, 5), (5, 1, 64, 33), (4, 8, 96, 40), (2, 130, 36, 129)])
+#: (B, S, D) of the RG-LRU scan checks: recurrentgemma-9b's forward (4 ×
+#: 2048 tokens) and forward check (2047); the reference sweep's shapes
+#: (tests/test_kernels.py); one step; odd widths.
+RGLRU_MAIN = (4, 2048, 4096)
+RGLRU_CASES = ([RGLRU_MAIN, (4, 2047, 4096)]
+               + [(b, s, d) for b in (1, 3) for s in (128, 256, 512) for d in (64, 128)]
+               + [(2, 1, 4096), (1, 2047, 8), (3, 100, 37), (5, 129, 4097)])
 
-#: The models phases 7-10 serve, with their main paths' engine runs:
+#: The models phases 7-12 serve, with their main paths' engine runs:
 #: phase, seed of the prompts (the requests' is the next), batch slots,
 #: max_seq, requests, prompt lengths [lo, hi) and new tokens per request.
+#: ``held_dtype``, where given, is the dtype of a copy of the model (same
+#: seed) on which the two whole-model checks are held at that dtype's
+#: tolerance: forward against prefill(S - 1) + one decode step, and the
+#: kernel path against the plain path (the main path's prompts and fed
+#: tokens); the bf16 model's errors are then printed, not held.  Else the
+#: bf16 model holds both at 3e-2.  recurrentgemma-9b rounds its bf16
+#: residual stream at each of 38 layers, and two correct bf16 paths drift
+#: apart layer by layer: forward against prefill + decode ends about 0.037
+#: apart with the plain versions as with the kernels, and so does the
+#: kernel path from the plain path, while in f32 both agree to 2e-5
+#: (on an NVIDIA H100; PERF.md, Findings).
 SERVED = {
     "qwen3-0.6b": dict(phase=7, seed=7, slots=8, max_seq=512, requests=16, prompt_len=(16, 129), new_tokens=32),
     "olmoe-1b-7b": dict(phase=9, seed=9, slots=8, max_seq=256, requests=8, prompt_len=(16, 65), new_tokens=16),
+    "recurrentgemma-9b": dict(phase=11, seed=11, slots=8, max_seq=256, requests=8, prompt_len=(16, 65),
+                              new_tokens=16, held_dtype="float32"),
 }
 
 
@@ -454,29 +499,32 @@ def roofline_ms(bytes_moved: int, ops: int, dtype) -> tuple:
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def launch_counts() -> dict:
-    """The LM kernels' launch counters, by kernel name."""
+def lm_wrappers() -> tuple:
+    """The LM kernels' wrappers, whose ``launches`` count their launches."""
     from repro_torch.kernels.decode_attn import decode_attention
     from repro_torch.kernels.flash import flash_attention
     from repro_torch.kernels.moe_gemm import grouped_gemm
+    from repro_torch.kernels.rglru import rglru_scan
 
-    return {k.__name__: k.launches for k in (flash_attention, decode_attention, grouped_gemm)}
+    return flash_attention, decode_attention, grouped_gemm, rglru_scan
+
+
+def launch_counts() -> dict:
+    """The LM kernels' launch counters, by kernel name."""
+    return {k.__name__: k.launches for k in lm_wrappers()}
 
 
 def set_launch_counts(counts: dict) -> None:
-    from repro_torch.kernels.decode_attn import decode_attention
-    from repro_torch.kernels.flash import flash_attention
-    from repro_torch.kernels.moe_gemm import grouped_gemm
-
-    for k in (flash_attention, decode_attention, grouped_gemm):
+    for k in lm_wrappers():
         k.launches = counts[k.__name__]
 
 
 def lm_phases(lm_build, dev) -> list:
-    """Phases 5-10: the LM kernels, then qwen3-0.6b and olmoe-1b-7b serving,
-    each followed by its kernel path against the plain path.  Returns the
-    three kernels' entries of the ``kernels`` line; their launches are those
-    of the two serving main paths (phases 7 and 9)."""
+    """Phases 5-12: the LM kernels, then qwen3-0.6b, olmoe-1b-7b and
+    recurrentgemma-9b serving, each followed by its kernel path against the
+    plain path.  Returns the four kernels' entries of the ``kernels`` line;
+    their launches are those of the three serving main paths (phases 7, 9
+    and 11)."""
     from repro_torch import build
 
     # -- 5. build ----------------------------------------------------------------
@@ -493,10 +541,12 @@ def lm_phases(lm_build, dev) -> list:
     for arch, shape in SERVED.items():
         main = serving_main_path(arch, shape, dev, timing)
         launches[arch] = main.pop("launches")
-        kernel_path_against_plain(main, shape["phase"] + 1, dev)
+        kernel_path_against_plain(main, shape, dev)
         del main
         torch.cuda.empty_cache()
     check(launches["qwen3-0.6b"]["grouped_gemm"] == 0, "qwen3-0.6b launched grouped_gemm")
+    check(launches["qwen3-0.6b"]["rglru_scan"] == launches["olmoe-1b-7b"]["rglru_scan"] == 0,
+          "a model without recurrent layers launched rglru_scan")
     print(f"# main path launches by model: {json.dumps(launches)}")
 
     def entry(name, replaces, shape):
@@ -510,7 +560,15 @@ def lm_phases(lm_build, dev) -> list:
         entry("flash_attention", "src/repro/kernels/flash/flash_attention.py:26", "qwen3-0.6b"),
         entry("decode_attention", "src/repro/kernels/decode_attn/decode_attention.py:23", "qwen3-0.6b"),
         entry("grouped_gemm", "src/repro/kernels/moe_gemm/grouped_gemm.py:19", "prefill wi/wu"),
+        entry("rglru_scan", "src/repro/kernels/rglru/rglru_scan.py:23", "recurrentgemma-9b"),
     ]
+
+
+def pairs_seen(S: int, window) -> int:
+    """Query-key pairs a causal attention over S tokens computes, under a
+    sliding window or none."""
+    w = S if window is None else min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
 
 
 def plain_flash_op(q, k, v, *, causal=True, window=None):
@@ -537,6 +595,7 @@ def lm_kernel_checks(dev):
     from repro_torch.kernels.decode_attn import decode_attention, decode_attention_op, decode_attention_plain
     from repro_torch.kernels.flash import flash_attention, flash_attention_op, flash_attention_plain
     from repro_torch.kernels.moe_gemm import grouped_gemm, grouped_gemm_plain
+    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
 
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -574,19 +633,18 @@ def lm_kernel_checks(dev):
                      decode_attention(q, k, v, on_card), want, dtype)
                 n_cases += 2
 
-    # The model-layout ops at phases 7 and 9's shapes: (B, S, heads, hd)
+    # The model-layout ops at phases 7, 9 and 11's shapes: (B, S, heads, hd)
     # tensors, which the ops hand the kernels as transposed (strided) views.
-    hd = 128
     for dtype in (f32, bf16):
-        for B, S, H, Kv in FLASH_OP_CASES:
+        for B, S, H, Kv, hd, window in FLASH_OP_CASES:
             q, k, v = randn(B, S, H, hd, dtype=dtype), randn(B, S, Kv, hd, dtype=dtype), randn(B, S, Kv, hd, dtype=dtype)
-            hold("flash_attention", f"flash op B={B} S={S} H={H} Kv={Kv} {dtype}", flash_attention_op(q, k, v),
-                 plain_flash_op(q, k, v), dtype)
+            hold("flash_attention", f"flash op B={B} S={S} H={H} Kv={Kv} hd={hd} window={window} {dtype}",
+                 flash_attention_op(q, k, v, window=window), plain_flash_op(q, k, v, window=window), dtype)
             n_cases += 1
-        for B, S, H, Kv, lengths in DECODE_OP_CASES:
+        for B, S, H, Kv, hd, lengths in DECODE_OP_CASES:
             q, k, v = randn(B, 1, H, hd, dtype=dtype), randn(B, S, Kv, hd, dtype=dtype), randn(B, S, Kv, hd, dtype=dtype)
             for length in lengths:
-                hold("decode_attention", f"decode op B={B} cache={S} H={H} Kv={Kv} length={length} {dtype}",
+                hold("decode_attention", f"decode op B={B} cache={S} H={H} Kv={Kv} hd={hd} length={length} {dtype}",
                      decode_attention_op(q, k, v, length), plain_decode_op(q, k, v, length), dtype)
                 n_cases += 1
     for E, C, D, Fd in GG_CASES:
@@ -595,25 +653,35 @@ def lm_kernel_checks(dev):
             hold("grouped_gemm", f"grouped_gemm ({E}, {C}, {D}) @ ({E}, {D}, {Fd}) {dtype}",
                  grouped_gemm(x, w), grouped_gemm_plain(x, w), dtype)
             n_cases += 1
+    for B, S, D in RGLRU_CASES:
+        for dtype in (f32, bf16):
+            a, x = torch.sigmoid(randn(B, S, D, dtype=f32)).to(dtype), randn(B, S, D, dtype=dtype)
+            # h0 is f32 in every case; the main path's is zeros.
+            for h0 in ((torch.zeros(B, D, device=dev), randn(B, D, dtype=f32)) if S >= 2047 else (randn(B, D, dtype=f32),)):
+                label = f"rglru_scan ({B}, {S}, {D}) {dtype} h0={'0' if not h0.any() else 'randn'}"
+                hold("rglru_scan", label, rglru_scan(a, x, h0), rglru_scan_plain(a, x, h0), dtype)
+                n_cases += 1
     print(f"# LM kernels == plain versions within tolerance in {n_cases} cases; "
           f"max abs error {json.dumps(max_abs)}")
 
     # Times at the main paths' shapes, through the ops on model-layout tensors.
     timing = {name: {} for name in LM_KERNELS}
-    for label, H, Kv in (("qwen3-0.6b", 16, 8), ("olmoe-1b-7b", 16, 16)):
+    # recurrentgemma-9b's window (2048) is not below S, so its local layers
+    # see the causal pairs and SDPA's causal mask is the same function.
+    for label, H, Kv, hd, window in (("qwen3-0.6b", 16, 8, 128, None), ("olmoe-1b-7b", 16, 16, 128, None),
+                                     ("recurrentgemma-9b", 16, 1, 256, 2048)):
         B, S = 4, 2048
         q, k, v = randn(B, S, H, hd), randn(B, S, Kv, hd), randn(B, S, Kv, hd)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        kernel = time_ms(lambda: flash_attention_op(q, k, v), 20)
-        plain = time_ms(lambda: plain_flash_op(q, k, v), 5)
+        kernel = time_ms(lambda: flash_attention_op(q, k, v, window=window), 20)
+        plain = time_ms(lambda: plain_flash_op(q, k, v, window=window), 5)
         lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-        pairs = S * (S + 1) // 2
-        bound = roofline_ms(2 * (2 * q.numel() + 2 * k.numel()), 4 * B * H * hd * pairs, bf16)
+        bound = roofline_ms(2 * (2 * q.numel() + 2 * k.numel()), 4 * B * H * hd * pairs_seen(S, window), bf16)
         timing["flash_attention"][label] = (kernel, plain, lib, bound)
-        print(f"# flash_attention {label} B={B} S={S} H={H} Kv={Kv} causal bf16: kernel {kernel!r} ms, "
-              f"plain {plain!r} ms, sdpa {lib!r} ms, bound {bound[0]!r} ms by {bound[1]}")
+        print(f"# flash_attention {label} B={B} S={S} H={H} Kv={Kv} hd={hd} window={window} causal bf16: "
+              f"kernel {kernel!r} ms, plain {plain!r} ms, sdpa {lib!r} ms, bound {bound[0]!r} ms by {bound[1]}")
 
-    def time_decode(B, S, L, H, Kv, reps):
+    def time_decode(B, S, L, H, Kv, reps, hd=128):
         """(kernel, plain, sdpa ms, bound) of one decode call at length L
         over a model-layout cache of S rows."""
         q, k, v = randn(B, 1, H, hd), randn(B, S, Kv, hd), randn(B, S, Kv, hd)
@@ -622,13 +690,15 @@ def lm_kernel_checks(dev):
         qt, kl, vl = q.transpose(1, 2), k[:, :L].transpose(1, 2), v[:, :L].transpose(1, 2)
         lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kl, vl, enable_gqa=True), reps)
         bound = roofline_ms(2 * (2 * q.numel() + 2 * B * Kv * L * hd), 4 * B * H * hd * L, bf16)
-        print(f"# decode_attention B={B} cache={S} H={H} Kv={Kv} length={L} bf16: kernel {kernel!r} ms, "
+        print(f"# decode_attention B={B} cache={S} H={H} Kv={Kv} hd={hd} length={L} bf16: kernel {kernel!r} ms, "
               f"plain {plain!r} ms, sdpa {lib!r} ms, bound {bound[0]!r} ms by {bound[1]}")
         return kernel, plain, lib, bound
 
     # The 64 decode steps of phases 7 and 9 run lengths 2049..2112; 2080 is their middle.
     timing["decode_attention"]["qwen3-0.6b"] = time_decode(4, 2112, 2080, 16, 8, 50)
     timing["decode_attention"]["olmoe-1b-7b"] = time_decode(4, 2112, 2080, 16, 16, 50)
+    # recurrentgemma-9b's 64 decode steps read the whole 2048-row ring.
+    timing["decode_attention"]["recurrentgemma-9b"] = time_decode(4, 2048, 2048, 16, 1, 50, hd=256)
     print("# extra shape, not on the main path:")
     time_decode(8, 4096, 2048, 16, 8, 50)
 
@@ -642,49 +712,98 @@ def lm_kernel_checks(dev):
         timing["grouped_gemm"][label] = (kernel, plain, lib, bound)
         print(f"# grouped_gemm {label} ({E}, {C}, {D}) @ ({E}, {D}, {Fd}) bf16: kernel {kernel!r} ms, "
               f"plain {plain!r} ms, torch.bmm {lib!r} ms, bound {bound[0]!r} ms by {bound[1]}")
+
+    # The scan at recurrentgemma-9b's forward shape, f32 with a zero h0 as
+    # the model gives it: 12 bytes a step and channel, 2 operations.
+    B, S, D = RGLRU_MAIN
+    a, x, h0 = torch.sigmoid(randn(B, S, D, dtype=f32)), randn(B, S, D, dtype=f32), torch.zeros(B, D, device=dev)
+    kernel = time_ms(lambda: rglru_scan(a, x, h0), 50)
+    plain = time_ms(lambda: rglru_scan_plain(a, x, h0), 3)
+    bound = roofline_ms(4 * (3 * B * S * D + B * D), 2 * B * S * D, f32)
+    timing["rglru_scan"]["recurrentgemma-9b"] = (kernel, plain, None, bound)
+    print(f"# rglru_scan recurrentgemma-9b ({B}, {S}, {D}) f32: kernel {kernel!r} ms, plain {plain!r} ms, "
+          f"no library call, bound {bound[0]!r} ms by {bound[1]}")
     return timing, max_abs
 
 
+def forward_against_decode(model, prompts) -> float:
+    """Relative error of ``forward``'s last position against prefill(S - 1)
+    + one decode step.  A forward sees what they see at its last position
+    only if no slot of that position was dropped, so an MoE model is checked
+    at its dropless capacity factor E / K (the capacity is shared by the
+    whole batch)."""
+    import dataclasses
+
+    from repro_torch.models import extend_cache
+
+    cfg = model.cfg
+    if cfg.n_experts:
+        model.cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    S = prompts.shape[1]
+    full, _, _ = model.forward({"tokens": prompts})
+    full_last = full[:, -1].clone()
+    del full
+    _, short_cache = model.prefill({"tokens": prompts[:, :-1]})
+    dec, _ = model.decode_step(extend_cache(model, short_cache, S), prompts[:, -1:], S - 1)
+    torch.cuda.synchronize()
+    model.cfg = cfg
+    return rel_err(dec[:, 0], full_last)
+
+
 def serving_main_path(arch: str, shape: dict, dev, timing: dict) -> dict:
-    """Phase 7 or 9: ``arch`` at full width and depth with seeded bf16
+    """Phase 7, 9 or 11: ``arch`` at full width and depth with seeded bf16
     weights — prefill of 4 × 2048, ``extend_cache`` to 2112, 64 greedy decode
     steps, ``forward``, and ``ServingEngine`` serving ``shape``'s requests —
     with each call's kernel launches checked.  The counters are set to 0
     after the warm-up; what they read after the engine run is the main
     path's ``launches``.  A check of ``forward`` against prefill(S - 1) + one
-    decode step runs between, its launches not counted.  Returns the model,
-    its prompts, the fed tokens, the prefill and first 16 decode steps'
-    logits, and the launches."""
+    decode step runs between (or first, on a copy in ``held_dtype``), its
+    launches not counted.  Returns the model, its prompts, the fed tokens,
+    the prefill and first 16 decode steps' logits, and the launches."""
     import dataclasses
 
-    from repro_torch.models import build as build_model, extend_cache
+    from repro_torch import configs
+    from repro_torch.models import build as build_model, build_from_config, extend_cache
     from repro_torch.serve import Request, ServingEngine
 
     phase_t0 = time.perf_counter()
-    model = build_model(arch, device="cuda", seed=0)
-    cfg = model.cfg
-    L = cfg.n_layers
-    gg = 3 if cfg.n_experts else 0  # grouped-GEMM launches per layer: wi, wu, wd
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"# {arch}: {n_params} parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    cfg = configs.get(arch)
     rng = np.random.default_rng(shape["seed"])
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, size=(4, 2048)), device=dev)
+    held_dtype = shape.get("held_dtype")
+    if held_dtype:
+        copy = build_from_config(dataclasses.replace(cfg, dtype=held_dtype), device="cuda", seed=0)
+        held_err = forward_against_decode(copy, prompts)
+        del copy
+        torch.cuda.empty_cache()
+        check(held_err <= TOL[getattr(torch, held_dtype)],
+              f"{held_dtype} forward against prefill + decode_step: relative error {held_err!r}")
+    model = build_model(arch, device="cuda", seed=0)
+    kinds = cfg.layer_kinds()
+    n_rglru = kinds.count("rglru")
+    n_attn = len(kinds) - n_rglru  # "attn" and "local" layers
+    gg = 3 * n_attn if cfg.n_experts else 0  # grouped-GEMM launches per call: wi, wu, wd of each MoE FFN
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"# {arch}: {n_params} parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
     model.prefill({"tokens": prompts[:1, :128]})  # warm-up (cuBLAS handles), not timed or counted
     torch.cuda.synchronize()
     set_launch_counts({name: 0 for name in LM_KERNELS})
 
-    def launched(flash, decode, calls):
-        """The counts are those of ``flash`` flash calls, ``decode`` decode
-        calls and ``calls`` MoE calls so far."""
-        return launch_counts() == {"flash_attention": flash * L, "decode_attention": decode * L,
-                                   "grouped_gemm": calls * gg * L}
+    def launched(forwards, steps):
+        """The counts are those of ``forwards`` full-sequence passes and
+        ``steps`` decode steps so far: each pass launches flash once per
+        attention layer and the scan once per recurrent layer, each step
+        decode attention once per attention layer and no scan, and both the
+        grouped GEMM three times per MoE FFN."""
+        return launch_counts() == {"flash_attention": forwards * n_attn, "decode_attention": steps * n_attn,
+                                   "grouped_gemm": (forwards + steps) * gg, "rglru_scan": forwards * n_rglru}
 
     t0 = time.perf_counter()
     last, cache = model.prefill({"tokens": prompts})
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    check(launched(1, 0, 1), f"prefill's launches {launch_counts()}: not flash once and grouped_gemm "
-          f"{gg} times per layer")
+    check(launched(1, 0), f"prefill's launches {launch_counts()}: not flash and rglru_scan once per layer of "
+          f"their kind and grouped_gemm {gg} times")
     check(bool(torch.isfinite(last).all()), "prefill logits are not finite")
     cache = extend_cache(model, cache, 2112)
     tok = last[:, -1].argmax(-1, keepdim=True)
@@ -698,40 +817,35 @@ def serving_main_path(arch: str, shape: dict, dev, timing: dict) -> dict:
             step_logits.append(logits)
     torch.cuda.synchronize()
     decode_step_ms = (time.perf_counter() - t0) * 1e3 / 64
-    check(launched(1, 64, 65), f"launches after 64 decode steps {launch_counts()}: not decode_attention once "
-          f"and grouped_gemm {gg} times per layer and step")
+    check(launched(1, 64), f"launches after 64 decode steps {launch_counts()}: not decode_attention once per "
+          f"attention layer and grouped_gemm {gg} times per step")
     check(bool(torch.isfinite(logits).all()), "decode logits are not finite")
     del cache
 
     full, aux, _ = model.forward({"tokens": prompts})
-    check(launched(2, 64, 66), f"forward's launches {launch_counts()}")
+    check(launched(2, 64), f"forward's launches {launch_counts()}")
     check(bool(torch.isfinite(full).all()), "forward logits are not finite")
     check(bool(torch.isfinite(aux)) and (float(aux) > 0.0) == (cfg.n_experts > 0), f"aux loss {float(aux)!r}")
-    full_last = full[:, -1].clone()
     del full
 
-    # Not the main path: its counts are kept and restored.  A forward sees
-    # what prefill(S - 1) + one decode step sees at its last position only
-    # if no slot of that position was dropped, so an MoE model is checked at
-    # its dropless capacity factor E / K (the capacity is shared by the
-    # whole batch), with a forward of its own.
+    # Not the main path: its counts are kept and restored.
     counts = launch_counts()
-    if cfg.n_experts:
-        model.cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
-        full, _, _ = model.forward({"tokens": prompts})
-        full_last = full[:, -1].clone()
-        del full
-    _, short_cache = model.prefill({"tokens": prompts[:, :-1]})
-    dec, _ = model.decode_step(extend_cache(model, short_cache, 2048), prompts[:, -1:], 2047)
-    torch.cuda.synchronize()
-    model.cfg = cfg
-    del short_cache
+    fwd_err = forward_against_decode(model, prompts)
+    if held_dtype:
+        counts_kernel = launch_counts()
+        with plain_ops():
+            plain_err = forward_against_decode(model, prompts)
+        check(launch_counts() == counts_kernel, "the plain path launched a kernel")
     set_launch_counts(counts)
-    fwd_err = rel_err(dec[:, 0], full_last)
-    check(fwd_err <= 3e-2, f"forward against prefill + decode_step: relative error {fwd_err!r}")
+    if held_dtype:
+        held = (f"{held_dtype} copy {held_err!r} (held at {TOL[getattr(torch, held_dtype)]}); "
+                f"{cfg.dtype} {fwd_err!r}, with the plain versions {plain_err!r} (not held)")
+    else:
+        check(fwd_err <= 3e-2, f"forward against prefill + decode_step: relative error {fwd_err!r}")
+        held = repr(fwd_err)
     print(f"# {arch} prefill 4 x 2048: {prefill_ms!r} ms; decode step (B=4, cache 2112): {decode_step_ms!r} ms "
           f"(mean of 64); aux loss {float(aux)!r}; {'dropless ' if cfg.n_experts else ''}forward vs "
-          f"prefill+decode relative error {fwd_err!r}")
+          f"prefill+decode relative error {held}")
 
     rng = np.random.default_rng(shape["seed"] + 1)
     lo, hi = shape["prompt_len"]
@@ -745,9 +859,9 @@ def serving_main_path(arch: str, shape: dict, dev, timing: dict) -> dict:
     serve_s = time.perf_counter() - t0
     check(all(r.done and len(r.output) == new for r in requests), f"a request did not finish with {new} tokens")
     n_decode_calls = sum(len(r.prompt) for r in requests) + engine.steps
-    check(launched(2, 64 + n_decode_calls, 66 + n_decode_calls),
-          f"launches after the engine {launch_counts()}: not decode_attention once and grouped_gemm {gg} "
-          "times per layer and step")
+    check(launched(2, 64 + n_decode_calls),
+          f"launches after the engine {launch_counts()}: not decode_attention once per attention layer and "
+          f"grouped_gemm {gg} times per step")
     print(f"# {arch} ServingEngine {shape['slots']} slots, {n} requests x {new} tokens: {serve_s!r} s, "
           f"{n * new / serve_s!r} generated tokens/s, {n_decode_calls} decode steps ({engine.steps} generating)")
     launches = launch_counts()
@@ -755,12 +869,14 @@ def serving_main_path(arch: str, shape: dict, dev, timing: dict) -> dict:
     # Each kernel's share of the prefill and of a decode step, at phase 6's
     # times of one call at this path's shapes.
     fl, de, gt = (timing["flash_attention"][arch][0], timing["decode_attention"][arch][0], timing["grouped_gemm"])
-    gg_prefill = L * (2 * gt["prefill wi/wu"][0] + gt["prefill wd"][0]) if gg else 0.0
-    gg_decode = L * (2 * gt["decode wi/wu"][0] + gt["decode wd"][0]) if gg else 0.0
-    print(f"# {arch} prefill {prefill_ms!r} ms; kernels at phase 6's times: flash_attention {L * fl!r} ms "
-          f"({100 * L * fl / prefill_ms:.1f} %), grouped_gemm {gg_prefill!r} ms ({100 * gg_prefill / prefill_ms:.1f} %)")
-    print(f"# {arch} decode step {decode_step_ms!r} ms; kernels at phase 6's times: decode_attention {L * de!r} ms "
-          f"({100 * L * de / decode_step_ms:.1f} %), grouped_gemm {gg_decode!r} ms "
+    scan = n_rglru * timing["rglru_scan"][arch][0] if n_rglru else 0.0
+    gg_prefill = n_attn * (2 * gt["prefill wi/wu"][0] + gt["prefill wd"][0]) if gg else 0.0
+    gg_decode = n_attn * (2 * gt["decode wi/wu"][0] + gt["decode wd"][0]) if gg else 0.0
+    print(f"# {arch} prefill {prefill_ms!r} ms; kernels at phase 6's times: flash_attention {n_attn * fl!r} ms "
+          f"({100 * n_attn * fl / prefill_ms:.1f} %), grouped_gemm {gg_prefill!r} ms "
+          f"({100 * gg_prefill / prefill_ms:.1f} %), rglru_scan {scan!r} ms ({100 * scan / prefill_ms:.1f} %)")
+    print(f"# {arch} decode step {decode_step_ms!r} ms; kernels at phase 6's times: decode_attention "
+          f"{n_attn * de!r} ms ({100 * n_attn * de / decode_step_ms:.1f} %), grouped_gemm {gg_decode!r} ms "
           f"({100 * gg_decode / decode_step_ms:.1f} %)")
     phase_done(shape["phase"], phase_t0)
     return {"model": model, "prompts": prompts, "fed": fed[:16], "last": last, "step_logits": step_logits,
@@ -808,40 +924,79 @@ def routed_apart(a: list, b: list, n_calls: int, rows: list) -> list:
     return out
 
 
-def kernel_path_against_plain(main: dict, phase: int, dev) -> None:
-    """Phase 8 or 10: the model's kernel path against its plain path (the
-    model's attention ops and grouped GEMM bound to their plain versions,
-    where ``repro_torch.models.attention`` and ``repro_torch.models.moe``
-    call them) at full width: prefill logits and 16 teacher-forced decode
-    steps, in bf16 within 3e-2.  An MoE model is also run in f32 (prefill of
-    4 × 256, 8 steps), within 1e-4."""
+def kernel_path_against_plain(main: dict, shape: dict, dev) -> None:
+    """Phase 8, 10 or 12: the model's kernel path against its plain path
+    (the model's kernel ops bound to their plain versions where
+    ``repro_torch.models`` calls them, ``model_ops``) at full width: prefill
+    logits and 16 teacher-forced decode steps, in bf16 within 3e-2.  An MoE
+    model is also run in f32 (prefill of 4 × 256, 8 steps), within 1e-4.  A
+    model with a ``held_dtype`` in its ``SERVED`` entry (``shape``) is held
+    on a copy in that dtype over the main path's prompts and fed tokens
+    instead, its bf16 errors printed."""
     import dataclasses
 
     from repro_torch.models import build_from_config
 
     phase_t0 = time.perf_counter()
     model = main.pop("model")
-    arch = model.cfg.arch
-    kernel = compare(f"{arch} {model.cfg.dtype}", model, main["prompts"], main["fed"], TOL[torch.bfloat16],
-                     by_sequence=False)
+    cfg = model.cfg
+    held_dtype = shape.get("held_dtype")
+    kernel = compare(f"{cfg.arch} {cfg.dtype}", model, main["prompts"], main["fed"],
+                     None if held_dtype else TOL[torch.bfloat16], by_sequence=False)
     check(torch.equal(kernel[0], main["last"]) and all(torch.equal(a, b) for a, b in zip(kernel[1], main["step_logits"])),
           "the kernel path is not deterministic: a rerun differs from the main path's")
-    if model.cfg.n_experts:
-        cfg = model.cfg
+    if cfg.n_experts or held_dtype:
         del model, kernel
         torch.cuda.empty_cache()
-        model32 = build_from_config(dataclasses.replace(cfg, dtype="float32"), device="cuda", seed=0)
-        rng = np.random.default_rng(11)
-        prompts32 = torch.as_tensor(rng.integers(0, cfg.vocab, size=(4, 256)), device=dev)
-        fed32 = [torch.as_tensor(rng.integers(0, cfg.vocab, size=(4, 1)), device=dev) for _ in range(8)]
-        compare(f"{arch} float32", model32, prompts32, fed32, TOL[torch.float32], by_sequence=True)
-    phase_done(phase, phase_t0)
+        dtype = held_dtype or "float32"
+        copy = build_from_config(dataclasses.replace(cfg, dtype=dtype), device="cuda", seed=0)
+        if held_dtype:
+            prompts, fed = main["prompts"], main["fed"]
+        else:
+            rng = np.random.default_rng(11)
+            prompts = torch.as_tensor(rng.integers(0, cfg.vocab, size=(4, 256)), device=dev)
+            fed = [torch.as_tensor(rng.integers(0, cfg.vocab, size=(4, 1)), device=dev) for _ in range(8)]
+        compare(f"{cfg.arch} {dtype}", copy, prompts, fed, TOL[getattr(torch, dtype)],
+                by_sequence=bool(cfg.n_experts))
+    phase_done(shape["phase"] + 1, phase_t0)
 
 
-def compare(label: str, model, prompts, fed, tol: float, by_sequence: bool):
+def model_ops() -> list:
+    """Where the model calls each kernel op, with the op's plain version:
+    ``(module, name, plain)``.  Binding the names to the plain versions runs
+    the plain path on the card."""
+    import repro_torch.models.attention as model_attention
+    import repro_torch.models.moe as model_moe
+    import repro_torch.models.recurrent as model_recurrent
+    from repro_torch.kernels.moe_gemm import grouped_gemm_plain
+    from repro_torch.kernels.rglru import rglru_scan_plain
+
+    return [(model_attention, "flash_attention_op", plain_flash_op),
+            (model_attention, "decode_attention_op", plain_decode_op),
+            (model_moe, "grouped_gemm_op", grouped_gemm_plain),
+            (model_recurrent, "rglru_scan_op", rglru_scan_plain)]
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Binds the model's kernel ops to their plain versions (``model_ops``)
+    for the ``with`` block."""
+    ops = model_ops()
+    kernels = [getattr(module, name) for module, name, _ in ops]
+    for module, name, plain in ops:
+        setattr(module, name, plain)
+    try:
+        yield
+    finally:
+        for (module, name, _), kernel in zip(ops, kernels):
+            setattr(module, name, kernel)
+
+
+def compare(label: str, model, prompts, fed, tol, by_sequence: bool):
     """Prefill logits and teacher-forced decode logits of the kernel path
-    against the plain path's, all held within ``tol``; returns the kernel
-    path's ``(prefill logits, step logits, expert indices)``.
+    against the plain path's, all held within ``tol`` (None: printed, not
+    held); returns the kernel path's ``(prefill logits, step logits, expert
+    indices)``.
 
     Two plain runs for an MoE model.  Where router logits differ in their
     last bit, the plain path can route a token to other experts than the
@@ -850,34 +1005,27 @@ def compare(label: str, model, prompts, fed, tol: float, by_sequence: bool):
     holds only the sequences routed alike throughout, else every row).  The
     second takes the kernel path's experts at every MoE call, so that every
     row of it measures the kernels' numerics alone."""
-    import repro_torch.models.attention as model_attention
-    import repro_torch.models.moe as model_moe
-    from repro_torch.kernels.moe_gemm import grouped_gemm_plain
     from repro_torch.models import extend_cache
 
-    kernel_ops = model_attention.flash_attention_op, model_attention.decode_attention_op, model_moe.grouped_gemm_op
-    plain_ops = plain_flash_op, plain_decode_op, grouped_gemm_plain
-
-    def run(ops, replay=None):
-        (model_attention.flash_attention_op, model_attention.decode_attention_op, model_moe.grouped_gemm_op) = ops
-        with Routes(replay) as routes:
+    def run(plain, replay=None):
+        with plain_ops() if plain else contextlib.nullcontext(), Routes(replay) as routes:
             last, cache = model.prefill({"tokens": prompts})
             cache = extend_cache(model, cache, prompts.shape[1] + 64)  # the main path's cache
             steps = []
             for t, tok in enumerate(fed):
                 logits, cache = model.decode_step(cache, tok, prompts.shape[1] + t)
                 steps.append(logits)
-        (model_attention.flash_attention_op, model_attention.decode_attention_op, model_moe.grouped_gemm_op) = kernel_ops
         torch.cuda.synchronize()
         return [last] + steps, routes.calls
 
     counts = launch_counts()
-    kernel, kernel_routes = run(kernel_ops)
+    kernel, kernel_routes = run(plain=False)
     counts_kernel = launch_counts()
-    plain, plain_routes = run(plain_ops)
+    plain, plain_routes = run(plain=True)
     check(launch_counts() == counts_kernel, "the plain path launched a kernel")
     B, S = prompts.shape
-    n_calls = model.cfg.n_layers if model.cfg.n_experts else 0
+    # MoE calls per forward or step: one per attention layer (the MoE FFNs).
+    n_calls = sum(k != "rglru" for k in model.cfg.layer_kinds()) if model.cfg.n_experts else 0
     rows_per_call = [B * S] + [B] * len(fed)
     apart = (routed_apart(kernel_routes, plain_routes, n_calls, rows_per_call) if n_calls
              else [torch.zeros(n, dtype=torch.bool, device=prompts.device) for n in rows_per_call])
@@ -891,20 +1039,22 @@ def compare(label: str, model, prompts, fed, tol: float, by_sequence: bool):
         rows = ~seq_apart if by_sequence else torch.ones_like(seq_apart)
         check(bool(rows.any()), f"{label}: every sequence was routed apart")
         errors.append(rel_err(k_logits[rows], p_logits[rows]))
-        check(errors[-1] <= tol, f"{label} {'prefill' if t == 0 else f'step {t}'}, kernel against plain path: "
+        check(tol is None or errors[-1] <= tol,
+              f"{label} {'prefill' if t == 0 else f'step {t}'}, kernel against plain path: "
               f"relative error {errors[-1]!r}")
     n_steps = len(fed)
-    print(f"# {label} kernel path == plain path: max relative error {max(errors)!r} over prefill {B} x {S} and "
-          f"{n_steps} teacher-forced steps{' (sequences routed alike)' if by_sequence else ''}; greedy tokens "
+    print(f"# {label} kernel path {'==' if tol else 'against'} plain path: max relative error {max(errors)!r} "
+          f"over prefill {B} x {S} and {n_steps} teacher-forced steps"
+          f"{' (sequences routed alike)' if by_sequence else ''}{'' if tol else ' (not held)'}; greedy tokens "
           f"agree {agree}/{B * n_steps}")
     if n_calls:
         print(f"# {label} token rows routed apart at some layer: prefill {int(apart[0].sum())}/{B * S}, decode "
               f"{int(sum(a.sum() for a in apart[1:]))}/{B * n_steps}, sequences {int(seq_apart.sum())}/{B}")
-        replayed, replayed_routes = run(plain_ops, replay=kernel_routes)
+        replayed, replayed_routes = run(plain=True, replay=kernel_routes)
         check(launch_counts() == counts_kernel, "the plain path launched a kernel")
         check(all(torch.equal(a, b) for a, b in zip(replayed_routes, kernel_routes)), "the replay changed a route")
         errors = [rel_err(k, p) for k, p in zip(kernel, replayed)]
-        check(max(errors) <= tol, f"{label}, kernel against plain path on the kernel path's routes: "
+        check(tol is None or max(errors) <= tol, f"{label}, kernel against plain path on the kernel path's routes: "
               f"relative errors {errors!r}")
         print(f"# {label} kernel path == plain path on the kernel path's routes: max relative error "
               f"{max(errors)!r} over every row of the prefill and the {n_steps} steps")

@@ -4,8 +4,8 @@
 #   flash/       — causal / sliding-window / bidirectional GQA flash attention
 #   decode_attn/ — split-K flash decoding (one token against a KV cache)
 #   moe_gemm/    — the grouped expert GEMM of the MoE FFN
-# The RG-LRU scan and the chunkwise mLSTM are still to be ported
-# (ROADMAP.md §2).
-from . import decode_attn, flash, moe_gemm
+#   rglru/       — the RG-LRU diagonal linear recurrence
+# The chunkwise mLSTM is still to be ported (ROADMAP.md §2).
+from . import decode_attn, flash, moe_gemm, rglru
 
-__all__ = ["decode_attn", "flash", "moe_gemm"]
+__all__ = ["decode_attn", "flash", "moe_gemm", "rglru"]

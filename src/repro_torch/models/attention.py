@@ -25,7 +25,8 @@ from ..kernels.decode_attn import decode_attention_op
 from ..kernels.flash import flash_attention_op
 from .common import ParamSpec, apply_rope, rms_norm
 
-Cache = Dict[str, torch.Tensor]
+#: An attention layer's decode cache: its k and v buffers.
+KVCache = Dict[str, torch.Tensor]
 
 
 def attn_spec(cfg: ModelConfig) -> ParamSpec:
@@ -62,7 +63,7 @@ def attention_forward(
     *,
     window: Optional[int] = None,
     causal: bool = True,
-) -> Tuple[torch.Tensor, Cache]:
+) -> Tuple[torch.Tensor, KVCache]:
     """Full-sequence attention.  Returns (out (B,S,D), kv cache pieces)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
@@ -79,7 +80,7 @@ def attention_forward(
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, window: Optional[int],
-                  dtype: torch.dtype, device: torch.device) -> Cache:
+                  dtype: torch.dtype, device: torch.device) -> KVCache:
     S = min(window, max_seq) if window else max_seq
     shape = (batch, S, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -90,11 +91,11 @@ def attention_decode(
     cfg: ModelConfig,
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,            # (B, 1, D)
-    cache: Cache,
+    cache: KVCache,
     pos: int,                   # index of the new token
     *,
     window: Optional[int] = None,
-) -> Tuple[torch.Tensor, Cache]:
+) -> Tuple[torch.Tensor, KVCache]:
     B = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x)
     pos_arr = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)

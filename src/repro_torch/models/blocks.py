@@ -1,9 +1,10 @@
 """Residual blocks: one spec + forward + decode step per block kind.
 
-Torch counterpart of ``repro/models/blocks.py`` for the attention kinds:
+Torch counterpart of ``repro/models/blocks.py`` for the attention kinds,
 "attn" (global) and "local" (sliding window), each with a dense SwiGLU FFN
-or, when the config has experts, an MoE FFN.  The recurrent kinds are later
-slices of the port and raise.
+or, when the config has experts, an MoE FFN; and for the recurrent kind
+"rglru" (Griffin's RG-LRU) with its SwiGLU FFN.  The xLSTM kinds ("mlstm",
+"slstm") are a later slice of the port and raise.
 """
 
 from __future__ import annotations
@@ -16,13 +17,18 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from . import attention as attn
 from . import moe as moe_mod
+from . import recurrent as rec
 from .common import ParamSpec, rms_norm
 
 ATTENTION_KINDS = ("attn", "local")
+KINDS = ATTENTION_KINDS + ("rglru",)
+
+#: A layer's decode cache: an attention layer's KV buffers ("k", "v") or a
+#: recurrent layer's state ("h", "conv").
+LayerCache = Dict[str, torch.Tensor]
 
 #: Block kinds of later slices, with the ROADMAP.md §1 item that ports them.
 _LATER_SLICES = {
-    "rglru": "recurrentgemma-9b (rglru_scan)",
     "mlstm": "xlstm-350m (mlstm_chunk)",
     "slstm": "xlstm-350m (mlstm_chunk)",
 }
@@ -34,7 +40,7 @@ def check_supported(cfg: ModelConfig, kind: str) -> None:
             f"{cfg.arch}: block kind {kind!r} is not ported yet; it comes with the "
             f"slice {_LATER_SLICES[kind]} of ROADMAP.md §1"
         )
-    if kind not in ATTENTION_KINDS:
+    if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -58,6 +64,12 @@ def block_spec(cfg: ModelConfig, kind: str) -> ParamSpec:
     check_supported(cfg, kind)
     D = cfg.d_model
     spec: ParamSpec = {"ln1": ((D,), ("embed",), "ones")}
+    if kind == "rglru":
+        spec.update(rec.rglru_spec(cfg))
+        if cfg.d_ff > 0:
+            spec["ln2"] = ((D,), ("embed",), "ones")
+            spec.update(ffn_spec(cfg))
+        return spec
     spec.update(attn.attn_spec(cfg))
     if cfg.n_experts > 0:
         spec["ln2"] = ((D,), ("embed",), "ones")
@@ -98,19 +110,24 @@ def block_forward(
     positions: torch.Tensor,
     *,
     causal: bool = True,
-) -> Tuple[torch.Tensor, attn.Cache, Union[torch.Tensor, float]]:
+) -> Tuple[torch.Tensor, LayerCache, Union[torch.Tensor, float]]:
     """Full-sequence pass.  Returns (x, decode cache, aux loss)."""
-    mixed, cache = attn.attention_forward(
-        cfg, p, rms_norm(x, p["ln1"]), positions,
-        window=_window(cfg, kind), causal=causal,
-    )
+    h = rms_norm(x, p["ln1"])
+    if kind == "rglru":
+        mixed, cache = rec.rglru_forward(cfg, p, h)
+    else:
+        mixed, cache = attn.attention_forward(
+            cfg, p, h, positions, window=_window(cfg, kind), causal=causal,
+        )
     x, stats = _mix_ffn(cfg, p, x, mixed)
     # The MoE's load-balancing loss (an f32 scalar), else 0.0 (no device work).
     return x, cache, moe_mod.moe_aux(cfg, *stats) if stats else 0.0
 
 
 def block_init_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
-                     dtype: torch.dtype, device: torch.device) -> attn.Cache:
+                     dtype: torch.dtype, device: torch.device) -> LayerCache:
+    if kind == "rglru":
+        return rec.rglru_init_state(cfg, batch, device)
     return attn.init_kv_cache(cfg, batch, max_seq, _window(cfg, kind), dtype, device)
 
 
@@ -119,11 +136,14 @@ def block_decode(
     kind: str,
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,            # (B, 1, D)
-    cache: attn.Cache,
+    cache: LayerCache,
     pos: int,
-) -> Tuple[torch.Tensor, attn.Cache]:
-    mixed, cache = attn.attention_decode(
-        cfg, p, rms_norm(x, p["ln1"]), cache, pos, window=_window(cfg, kind),
-    )
+) -> Tuple[torch.Tensor, LayerCache]:
+    """One token; the layer's cache is updated in place."""
+    h = rms_norm(x, p["ln1"])
+    if kind == "rglru":
+        mixed, cache = rec.rglru_step(cfg, p, h, cache)
+    else:
+        mixed, cache = attn.attention_decode(cfg, p, h, cache, pos, window=_window(cfg, kind))
     x, _ = _mix_ffn(cfg, p, x, mixed)
     return x, cache

@@ -1,16 +1,19 @@
 """The language model: embeddings → layers → final norm → head.
 
 Torch counterpart of ``repro/models/lm.py`` for decoder-only models whose
-layers are attention blocks ("attn"/"local").  The parameters live in the
+layers are attention blocks ("attn"/"local") or RG-LRU recurrent blocks
+("rglru"), each with a dense or MoE FFN.  The parameters live in the
 module; layers are an ``nn.ModuleList`` in layer order (the reference's
 scanned groups and unscanned tail are one list here, see
 :mod:`.convert`).  Matrices are stored in the compute dtype (the reference
 keeps f32 and casts at every use, which gives the same numbers); norm
 weights stay in the parameter dtype and are read in f32.
 
-Not ported yet, and raising: the vision prefix (phi-3-vision), the
-encoder-decoder (whisper), recurrent blocks, ``loss_fn`` (training, with
-remat).
+Each layer's decode cache is a dict: k and v buffers for an attention
+layer, the recurrent state h and conv for an "rglru" layer.  Not ported
+yet, and raising: the vision prefix (phi-3-vision), the encoder-decoder
+(whisper), the xLSTM blocks ("mlstm", "slstm"), ``loss_fn`` (training,
+with remat).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
 from . import blocks
-from .attention import Cache
+from .blocks import LayerCache
 from .common import ParamSpec, dtype_of, init_tensor, rms_norm
 
 
@@ -108,7 +111,7 @@ class Model(nn.Module):
     @torch.no_grad()
     def forward(
         self, batch: Dict[str, torch.Tensor], collect_cache: bool = False
-    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[List[Cache]]]:
+    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[List[LayerCache]]]:
         """Returns (logits (B,S,V), aux loss summed over layers, per-layer
         caches or None)."""
         hidden, aux, caches = self._hidden(batch["tokens"], collect_cache)
@@ -132,14 +135,14 @@ class Model(nn.Module):
 
     # -- prefill ---------------------------------------------------------------------
     @torch.no_grad()
-    def prefill(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, List[Cache]]:
+    def prefill(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, List[LayerCache]]:
         """Returns (last-position logits (B,1,V), per-layer decode caches);
         only the last position is unembedded."""
         hidden, _, caches = self._hidden(batch["tokens"], collect_cache=True)
         return self.unembed(hidden[:, -1:]), caches
 
     # -- decode ----------------------------------------------------------------------
-    def init_cache(self, batch: int, max_seq: int) -> List[Cache]:
+    def init_cache(self, batch: int, max_seq: int) -> List[LayerCache]:
         return [
             blocks.block_init_cache(self.cfg, layer.kind, batch, max_seq, self.dtype, self.device)
             for layer in self.layers
@@ -147,8 +150,8 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def decode_step(
-        self, cache: List[Cache], token: torch.Tensor, pos: int
-    ) -> Tuple[torch.Tensor, List[Cache]]:
+        self, cache: List[LayerCache], token: torch.Tensor, pos: int
+    ) -> Tuple[torch.Tensor, List[LayerCache]]:
         """One token for the whole batch: token (B,1) integer, pos a Python
         int.  Each layer's cache is updated in place; the same list is
         returned."""

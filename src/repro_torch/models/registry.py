@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from .. import configs
 from ..configs.base import ModelConfig
 from ..device import DeviceLike
-from .attention import Cache
+from .blocks import ATTENTION_KINDS, LayerCache
 from .lm import Model
 
 
@@ -31,13 +31,17 @@ def build(arch: str, smoke: bool = False, device: DeviceLike = None, seed: int =
     return build_from_config(cfg, device, seed)
 
 
-def extend_cache(model: Model, cache: List[Cache], max_seq: int) -> List[Cache]:
-    """Zero-pad each layer's KV buffers along the sequence up to
+def extend_cache(model: Model, cache: List[LayerCache], max_seq: int) -> List[LayerCache]:
+    """Zero-pad each attention layer's KV buffers along the sequence up to
     ``max_seq`` ("attn") or ``min(window, max_seq)`` ("local"), so decoding
-    can continue past the prefill length.  New tensors; the input is left
-    as it was."""
+    can continue past the prefill length.  Recurrent states are
+    size-invariant and are copied as they are.  New tensors; the input is
+    left as it was (decode updates the caches in place)."""
     out = []
     for layer, sub in zip(model.layers, cache):
+        if layer.kind not in ATTENTION_KINDS:
+            out.append({name: t.clone() for name, t in sub.items()})
+            continue
         target = min(model.cfg.window, max_seq) if layer.kind == "local" else max_seq
         out.append({
             name: F.pad(t, (0, 0, 0, 0, 0, max(target - t.shape[1], 0))) for name, t in sub.items()

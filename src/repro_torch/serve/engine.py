@@ -7,7 +7,9 @@ greedy sampling and step schedule.  Two behaviours of the reference are
 kept as they are (ROADMAP.md §3): one ``pos`` serves every slot (the
 largest over active slots), and admission feeds the prompt one token per
 step at positions 0, 1, … with token 0 in every other slot, so every slot's
-cache rows at those positions are overwritten.
+cache rows at those positions are overwritten.  For a recurrent ("rglru")
+layer that token 0 also advances every other slot's state (``h`` and
+``conv``), including slots that are already decoding.
 """
 
 from __future__ import annotations

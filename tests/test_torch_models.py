@@ -4,7 +4,9 @@ The reference's seeded parameters are carried into the port with
 ``params_from_jax``; then ``forward`` logits, ``prefill`` logits and several
 teacher-forced ``decode_step``s (past the sliding window, and past the end
 of a full cache, where the slot clamps) are compared, and so is the aux
-loss that ``forward`` sums over the MoE layers.  Tolerances: relative max
+loss that ``forward`` sums over the MoE layers.  recurrentgemma's smoke
+config and a 5-layer variant carry RG-LRU states through prefill and
+decode; its local layer's ring wraps.  Tolerances: relative max
 error 1e-4 with ``dtype="float32"`` and 3e-2 as shipped in bfloat16 (the
 reference's ``tol_for``; the reference forms attention scores in the
 compute dtype, the port in f32).
@@ -35,12 +37,23 @@ def local_config():
                                window=4, n_layers=3)
 
 
+def recurrent_tail_config():
+    """recurrentgemma's smoke config at 5 layers: one ("rglru", "rglru",
+    "local") group and a tail of two "rglru" layers, which the reference
+    keeps unscanned as ``tail/tail{0,1}_rglru``."""
+    return dataclasses.replace(ref_configs.get_smoke("recurrentgemma-9b"), n_layers=5)
+
+
 CONFIGS = {
     "qwen3": lambda: ref_configs.get_smoke("qwen3-0.6b"),
     "smollm": lambda: ref_configs.get_smoke("smollm-360m"),
     "qwen3-local": local_config,
     "olmoe": lambda: ref_configs.get_smoke("olmoe-1b-7b"),
     "mixtral": lambda: ref_configs.get_smoke("mixtral-8x7b"),
+    # RG-LRU layers with a window-16 local layer: the ring wraps in the
+    # decode steps of test_model_matches_reference (a cache of 9 rows).
+    "recurrentgemma": lambda: ref_configs.get_smoke("recurrentgemma-9b"),
+    "recurrentgemma-tail": recurrent_tail_config,
 }
 DTYPES = {"float32": 1e-4, "bfloat16": 3e-2}
 
@@ -196,11 +209,80 @@ def test_seeded_weights_are_reproducible_and_truncated():
     assert len(a.layers) == a.cfg.n_layers
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m",
-                                  "whisper-large-v3", "phi-3-vision-4.2b"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-large-v3", "phi-3-vision-4.2b"])
 def test_later_slices_raise(arch):
     with pytest.raises(NotImplementedError):
         build(arch, smoke=True, device="cpu")
+
+
+def spec_count(specs) -> int:
+    """Parameters in a reference spec tree, counted from the shapes."""
+    if isinstance(specs, tuple):
+        return int(np.prod(specs[0]))
+    return sum(spec_count(v) for v in specs.values())
+
+
+def test_recurrentgemma_builds():
+    """The hybrid model builds: RG-LRU layers with their SwiGLU FFN between
+    local attention layers, recurrent states in its decode cache, and at
+    full size (counted from the specs, nothing allocated) the reference's
+    10,444,984,320 parameters."""
+    from repro.models.lm import Model as RefModel
+    from repro_torch.models import blocks
+
+    model = build("recurrentgemma-9b", smoke=True, device="cpu", seed=1)
+    kinds = [layer.kind for layer in model.layers]
+    assert kinds == ["rglru", "rglru", "local"]
+    assert {"w_in_x", "conv_w", "lambda_p", "w_out", "ln2", "wi"} <= set(model.layers[0].spec)
+    assert model.layers[0].conv_b.dtype == torch.float32 and model.layers[0].conv_w.dtype == torch.bfloat16
+    cache = model.init_cache(2, 32)
+    assert set(cache[0]) == {"h", "conv"} and tuple(cache[0]["conv"].shape) == (2, 3, model.cfg.d_model)
+    assert tuple(cache[2]["k"].shape) == (2, 16, 1, model.cfg.head_dim)  # min(window, max_seq) rows
+    cfg = configs.get("recurrentgemma-9b")
+    D, V = cfg.d_model, cfg.vocab
+    port_count = 2 * V * D + D + sum(
+        spec_count(blocks.block_spec(cfg, kind)) for kind in cfg.layer_kinds())
+    assert port_count == spec_count(RefModel(ref_configs.get("recurrentgemma-9b")).param_specs())
+    assert port_count == 10_444_984_320
+
+
+def test_params_from_jax_carries_the_recurrent_tail():
+    """Layers 3 and 4 of the 5-layer variant come from ``tail/tail0_rglru``
+    and ``tail/tail1_rglru``; layers 0-2 from index 0 of ``groups``."""
+    cfg = dataclasses.replace(recurrent_tail_config(), dtype="float32")
+    _, params, port = lm_pair(cfg, seed=12)
+    assert [layer.kind for layer in port.layers] == ["rglru", "rglru", "local", "rglru", "rglru"]
+    for idx, key in ((3, "tail0_rglru"), (4, "tail1_rglru")):
+        for name, want in params["tail"][key].items():
+            np.testing.assert_array_equal(getattr(port.layers[idx], name).numpy(), np.asarray(want))
+    for idx, key in enumerate(("blk0_rglru", "blk1_rglru", "blk2_local")):
+        for name, want in params["groups"][key].items():
+            np.testing.assert_array_equal(getattr(port.layers[idx], name).numpy(), np.asarray(want[0]))
+
+
+def test_extend_cache_passes_recurrent_states_through():
+    """Recurrent states keep their shapes and values in new tensors; the
+    attention layer's KV buffers grow to min(window, max_seq); decoding on
+    the extended cache leaves the prefill cache as it was."""
+    model = build("recurrentgemma-9b", smoke=True, device="cpu", seed=2)
+    toks = torch.from_numpy(tokens(model.cfg.vocab, 2, 6, seed=3)).long()
+    _, cache = model.prefill({"tokens": toks})
+    before = [{n: t.clone() for n, t in sub.items()} for sub in cache]
+    grown = extend_cache(model, cache, 40)
+    for layer, sub, new in zip(model.layers, cache, grown):
+        for name, t in sub.items():
+            assert new[name] is not t and new[name].data_ptr() != t.data_ptr()
+            if layer.kind == "rglru":
+                assert torch.equal(new[name], t)
+            else:
+                assert new[name].shape[1] == model.cfg.window and torch.equal(new[name][:, :6], t)
+    assert tuple(grown[0]["h"].shape) == (2, model.cfg.d_model)
+    assert tuple(grown[0]["conv"].shape) == (2, 3, model.cfg.d_model)
+    model.decode_step(grown, toks[:, :1], 6)
+    assert not torch.equal(grown[0]["h"], before[0]["h"])
+    for sub, old in zip(cache, before):
+        for name, t in sub.items():
+            assert torch.equal(t, old[name]), name
 
 
 def test_params_from_jax_carries_the_expert_weights():

@@ -114,7 +114,7 @@ CUDA_SOURCES = sorted(p.stem for p in (REPO / "src" / "repro_torch" / "csrc").gl
 
 
 def test_every_cuda_source_is_a_kernel_of_the_port():
-    assert CUDA_SOURCES == ["decode_attention", "flash_attention", "fused_score", "grouped_gemm"]
+    assert CUDA_SOURCES == ["decode_attention", "flash_attention", "fused_score", "grouped_gemm", "rglru_scan"]
 
 
 def test_build_command_targets_hopper_without_fma(monkeypatch):
@@ -164,6 +164,15 @@ def test_grouped_gemm_argument_struct_matches_its_c_layout():
     cls = mod._GroupedGemmArgs
     assert ctypes.sizeof(cls) == 8 * len(mod._PTR_FIELDS) + 4 * len(mod._INT_FIELDS) + 4
     assert c_struct_fields("grouped_gemm", "GroupedGemmArgs") == [n for n, _ in cls._fields_]
+
+
+def test_rglru_scan_argument_struct_matches_its_c_layout():
+    """Four pointers, then four ints — the fields of ``struct RglruArgs`` in
+    the same order, with no padding."""
+    mod = importlib.import_module("repro_torch.kernels.rglru.rglru_scan")
+    cls = mod._RglruArgs
+    assert ctypes.sizeof(cls) == 8 * len(mod._PTR_FIELDS) + 4 * len(mod._INT_FIELDS)
+    assert c_struct_fields("rglru_scan", "RglruArgs") == [n for n, _ in cls._fields_]
 
 
 def test_kernel_arguments_pack_from_uploaded_arena():

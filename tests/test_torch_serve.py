@@ -2,7 +2,8 @@
 
 Same float32 smoke model (the reference's seeded parameters carried over
 with ``params_from_jax``), same requests: the generated token lists are
-equal, for dense attention models and for an MoE one.  Requests finish at different steps, so later ones are admitted
+equal, for dense attention models, an MoE one and a hybrid recurrent one.
+Requests finish at different steps, so later ones are admitted
 while other slots are decoding — the admission pass then overwrites those
 slots' cache rows, a reference behaviour the port keeps.
 """
@@ -39,6 +40,9 @@ def requests(cls, vocab, specs, seed):
     # MoE FFNs: every decode step routes all slots, idle ones included
     # (token 0), through the experts.
     ("olmoe-1b-7b", 3, 32, [(5, 3), (3, 7), (8, 2), (4, 5), (6, 4)]),
+    # RG-LRU layers: admission's token 0 also advances every other slot's
+    # recurrent state, as in the reference.
+    ("recurrentgemma-9b", 3, 32, [(5, 3), (3, 7), (8, 2), (4, 5), (6, 4)]),
 ])
 def test_engine_tokens_match_reference(arch, slots, max_seq, specs):
     cfg = dataclasses.replace(ref_configs.get_smoke(arch), dtype="float32")
